@@ -1,0 +1,215 @@
+"""How many logic instructions the AES-MMO kernels' work takes.
+
+``chip_smoke.py`` divides this count by the card's logic-instruction issue
+rate to get each kernel's operation bound.  It is counted, not estimated by
+hand:
+
+1. :func:`trace_mmo` runs AES-128-MMO on symbols and records the circuit as a
+   DAG of two-input XOR and AND gates.  It uses the cheapest circuits at hand:
+   the Boyar-Peralta S-box of ``sbox_circuit`` and MixColumns as
+   ``out_r = a_r ^ t ^ xtime(a_r ^ a_{r+1})`` with ``t`` the column's XOR.
+   NOTs and the round keys' all-zero/all-one masks become edge polarities,
+   which cost nothing: every Hopper logic instruction (``LOP3``) inverts its
+   inputs for free.  Equal gates are merged, so the PRG's two keys share
+   their first S-box layer.
+2. :func:`lop3_cover` counts the ``LOP3`` instructions of a cover of that
+   DAG.  Every value used more than once, or stored, is one instruction's
+   output; between them each fan-out-free cone is split into pieces of at
+   most three inputs, with XOR chains regrouped freely.  The cover is a
+   count that a kernel can reach, not a proven minimum: a better circuit or
+   cover would lower it.
+
+:func:`evaluate` runs the DAG on numbers, which is how the tests check that
+the counted circuit computes the kernels' function.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+from collections import Counter
+
+import numpy as np
+
+from .aes_bitslice import RK_MASKS_L, RK_MASKS_R, _SHIFT_PLANES
+from .sbox_circuit import sbox_bp113
+
+_INPUT, _XOR, _AND = "in", "^", "&"
+
+
+class _Dag:
+    """Gates ``(op, a, b)`` on node ids; inputs are ``("in", index, None)``.
+    Structural hashing merges equal gates."""
+
+    def __init__(self):
+        self.nodes: list[tuple] = []
+        self._index: dict[tuple, int] = {}
+
+    def node(self, key: tuple) -> int:
+        if key not in self._index:
+            self._index[key] = len(self.nodes)
+            self.nodes.append(key)
+        return self._index[key]
+
+
+class _Sig:
+    """A symbolic 32-bit value: node ``n`` of ``dag``, inverted if ``inv``."""
+
+    def __init__(self, dag: _Dag, n: int, inv: bool = False):
+        self.dag, self.n, self.inv = dag, n, inv
+
+    def __invert__(self) -> "_Sig":
+        return _Sig(self.dag, self.n, not self.inv)
+
+    def __xor__(self, other: "_Sig") -> "_Sig":
+        a, b = sorted((self.n, other.n))
+        return _Sig(self.dag, self.dag.node((_XOR, a, b)), self.inv ^ other.inv)
+
+    def __and__(self, other: "_Sig") -> "_Sig":
+        a, b = sorted(((self.n, self.inv), (other.n, other.inv)))
+        return _Sig(self.dag, self.dag.node((_AND, a, b)))
+
+    def __or__(self, other: "_Sig") -> "_Sig":
+        return ~(~self & ~other)
+
+
+def _xtime(a: list[_Sig]) -> list[_Sig]:
+    """Doubling in GF(2^8) on 8 LSB-first bits (reduction polynomial 0x11B)."""
+    return [a[7]] + [a[k - 1] ^ a[7] if k in (1, 3, 4) else a[k - 1] for k in range(1, 8)]
+
+
+def _mix_column(col: list[list[_Sig]]) -> list[list[_Sig]]:
+    """MixColumns on one column's 4 bytes: 2 a_r + 3 a_{r+1} + a_{r+2} + a_{r+3}."""
+    t = [col[0][k] ^ col[1][k] ^ col[2][k] ^ col[3][k] for k in range(8)]
+    out = []
+    for r in range(4):
+        d = _xtime([col[r][k] ^ col[(r + 1) % 4][k] for k in range(8)])
+        out.append([col[r][k] ^ t[k] ^ d[k] for k in range(8)])
+    return out
+
+
+def _encrypt(dag: _Dag, S: list[_Sig], rk_masks: np.ndarray) -> list[_Sig]:
+    """AES-128 on canonical planes p = 8 * byte + bit with constant round keys."""
+
+    def add_round_key(s, rnd):
+        return [~x if rk_masks[rnd, p] else x for p, x in enumerate(s)]
+
+    s = add_round_key(S, 0)
+    for rnd in range(1, 11):
+        for b in range(16):
+            y = sbox_bp113([s[8 * b + 7 - i] for i in range(8)])  # MSB-first
+            s[8 * b : 8 * b + 8] = y[::-1]
+        s = [s[int(q)] for q in _SHIFT_PLANES]
+        if rnd < 10:
+            s = [x for c in range(4) for byte in _mix_column(
+                [s[8 * (4 * c + r) : 8 * (4 * c + r) + 8] for r in range(4)]
+            ) for x in byte]
+        s = add_round_key(s, rnd)
+    return s
+
+
+def trace_mmo(rk_sets: tuple[np.ndarray, ...]) -> tuple[_Dag, list[_Sig]]:
+    """``AES_k(S) ^ S`` for each round-key mask set in ``rk_sets``, on one
+    DAG over the 128 canonical input planes -> (DAG, outputs in key order)."""
+    dag = _Dag()
+    S = [_Sig(dag, dag.node((_INPUT, p, None))) for p in range(128)]
+    outs = []
+    for rk in rk_sets:
+        outs += [e ^ x for e, x in zip(_encrypt(dag, list(S), rk), S)]
+    return dag, outs
+
+
+def evaluate(dag: _Dag, outs: list[_Sig], planes: np.ndarray) -> np.ndarray:
+    """Run the DAG on uint32[128, B] canonical planes -> uint32[len(outs), B]."""
+    ones = np.uint32(0xFFFFFFFF)
+    val: list[np.ndarray] = []
+    for op, a, b in dag.nodes:
+        if op == _INPUT:
+            val.append(planes[a])
+        elif op == _XOR:
+            val.append(val[a] ^ val[b])
+        else:
+            (na, ia), (nb, ib) = a, b
+            val.append((val[na] ^ (ones * ia)) & (val[nb] ^ (ones * ib)))
+    return np.stack([val[o.n] ^ (ones * o.inv) for o in outs])
+
+
+def two_input_gates(dag: _Dag) -> int:
+    """XOR and AND gates of the DAG (NOTs and constant masks are free)."""
+    return sum(op != _INPUT for op, _, _ in dag.nodes)
+
+
+def _operands(key: tuple) -> tuple[int, int]:
+    op, a, b = key
+    return (a[0], b[0]) if op == _AND else (a, b)
+
+
+def lop3_cover(dag: _Dag, outs: list[_Sig]) -> int:
+    """``LOP3`` instructions (any function of three inputs) of a cover of
+    the DAG that computes ``outs``."""
+    fanout = Counter(o.n for o in outs)
+    for key in dag.nodes:
+        if key[0] != _INPUT:
+            fanout.update(_operands(key))
+    kept = {n for n, key in enumerate(dag.nodes)
+            if key[0] == _INPUT or fanout[n] != 1} | {o.n for o in outs}
+    fresh = itertools.count(len(dag.nodes))
+
+    def reduce(items: list[frozenset]) -> tuple[frozenset, int]:
+        """Merge input sets into one of at most three inputs: each step
+        spends one instruction on the group of items that takes the most
+        inputs (at most three) and leaves one new input."""
+        cost = 0
+        while len(frozenset().union(*items)) > 3:
+            best = max(
+                (g for r in (1, 2, 3) for g in itertools.combinations(range(len(items)), r)
+                 if len(frozenset().union(*(items[i] for i in g))) <= 3
+                 and (r > 1 or len(items[g[0]]) > 1)),
+                key=lambda g: (len(frozenset().union(*(items[i] for i in g))), len(g)),
+            )
+            items = [x for i, x in enumerate(items) if i not in best]
+            items.append(frozenset({next(fresh)}))
+            cost += 1
+        return frozenset().union(*items), cost
+
+    def cone(n: int) -> tuple[frozenset, int]:
+        """Inputs and instructions of the cone below node n, left open for
+        its consumer to absorb (at most three inputs)."""
+        if dag.nodes[n][0] == _XOR:
+            parity: Counter = Counter()
+            stack = [n]
+            while stack:  # flatten XOR chains whose inner values are used once
+                for c in _operands(dag.nodes[stack.pop()]):
+                    if dag.nodes[c][0] == _XOR and c not in kept:
+                        stack.append(c)
+                    else:
+                        parity[c] ^= 1
+            operands = [c for c, odd in parity.items() if odd]
+        else:
+            operands = list(dict.fromkeys(_operands(dag.nodes[n])))
+        items, cost = [], 0
+        for c in operands:
+            if c in kept:
+                items.append(frozenset({c}))
+            else:
+                inputs, k = cone(c)
+                items.append(inputs)
+                cost += k
+        inputs, k = reduce(items)
+        return inputs, cost + k
+
+    total = 0
+    for n in kept:
+        if dag.nodes[n][0] == _INPUT:
+            continue
+        inputs, cost = cone(n)
+        total += cost + (len(inputs) > 1)  # one input: reduce()'s output, or a copy
+    return total
+
+
+@functools.cache
+def lop3_per_column(n_keys: int) -> int:
+    """``LOP3`` instructions of ``n_keys`` fixed-key MMOs of one column word
+    (32 blocks): 2 for the PRG (keys L and R), 1 for the leaf convert (L)."""
+    dag, outs = trace_mmo((RK_MASKS_L, RK_MASKS_R)[:n_keys])
+    return lop3_cover(dag, outs)

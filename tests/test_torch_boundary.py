@@ -1,0 +1,186 @@
+"""The port's boundaries: no JAX and nothing of dpf_tpu inside it, the card
+by default with no quiet fallback to the CPU, and a generated S-box header
+that is up to date.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import chip_smoke  # noqa: E402
+import dpf_tpu_torch as port  # noqa: E402
+from dpf_tpu_torch.models import dpf as port_dpf  # noqa: E402
+from dpf_tpu_torch.ops import aes_cuda, build, gen_sbox, op_count  # noqa: E402
+from dpf_tpu_torch.ops.aes_bitslice import from_carrier, prg_planes, to_carrier  # noqa: E402
+from dpf_tpu_torch.ops.sbox_circuit import sbox_bp113  # noqa: E402
+from test_golden_vectors import VECTORS  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "dpf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "dpf_tpu")
+
+
+def test_import_loads_no_jax_and_no_dpf_tpu():
+    code = (
+        "import sys\n"
+        "import chip_smoke, dpf_tpu_torch, dpf_tpu_torch.interop\n"
+        "import dpf_tpu_torch.ops.aes_cuda, dpf_tpu_torch.ops.build\n"
+        "import dpf_tpu_torch.ops.gen_sbox, dpf_tpu_torch.ops.op_count, dpf_tpu_torch.models.dpf\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax_and_no_dpf_tpu(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_eval_full_batch_without_cuda_raises_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.eval_full_batch(ka)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.EvalFull(ka.to_bytes()[0], 8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port_dpf.DeviceKeys(ka)
+    assert port.eval_full_batch(ka, device="cpu").shape == (2, 32)
+
+
+@pytest.mark.parametrize("wrapper", ["prg_planes_bm", "mmo_planes_bm_canon"])
+def test_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
+    fn = getattr(aes_cuda, wrapper)
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(torch.empty((128, 32), dtype=torch.int32, device="meta"))
+    fn(torch.zeros((128, 32), dtype=torch.int32))  # the plain version: no launch
+    assert fn.launches == before
+
+
+def test_eval_full_device_rejects_unknown_impl():
+    ka, _ = port.gen_batch([1], 8, np.random.default_rng(0))
+    with pytest.raises(ValueError):
+        port_dpf.eval_full_device(port_dpf.DeviceKeys(ka, "cpu"), impl="triton")
+
+
+def test_generated_sbox_header_is_up_to_date():
+    assert gen_sbox.HEADER_PATH.read_text() == gen_sbox.generate()
+
+
+def test_sbox_gate_count():
+    # 32 AND + 83 XOR + 4 NOT: the circuit's 4 XNORs trace as XOR then NOT.
+    assert len(gen_sbox.trace_circuit()[0]) == 119
+    # The operation bound's counts (NOTs free): 115 gates -> 85 LOP3 per
+    # S-box; one MMO column 22,992 gates -> 16,236 LOP3; the PRG's two share
+    # their first S-box layer.
+    dag = op_count._Dag()
+    x = [op_count._Sig(dag, dag.node(("in", i, None))) for i in range(8)]
+    y = sbox_bp113(x)
+    assert (op_count.two_input_gates(dag), op_count.lop3_cover(dag, y)) == (115, 85)
+    dag, outs = op_count.trace_mmo((op_count.RK_MASKS_L,))
+    assert op_count.two_input_gates(dag) == 22992
+    assert op_count.lop3_per_column(1) == 16236
+    assert op_count.lop3_per_column(2) == 32094
+
+
+@pytest.mark.parametrize(
+    "expr, want",
+    [
+        # (a & b) ^ c is one instruction; a five-way XOR is two.
+        (lambda a, b, c, d, e: (a & b) ^ c, 1),
+        (lambda a, b, c, d, e: a ^ b ^ c ^ d ^ e, 2),
+        (lambda a, b, c, d, e: ((a ^ b) ^ (c ^ d)) ^ e, 2),
+        (lambda a, b, c, d, e: ~(a ^ ~b), 1),
+        (lambda a, b, c, d, e: (a & b) ^ (c & d), 2),
+    ],
+)
+def test_lop3_cover_small_circuits(expr, want):
+    dag = op_count._Dag()
+    x = [op_count._Sig(dag, dag.node(("in", i, None))) for i in range(5)]
+    assert op_count.lop3_cover(dag, [expr(*x)]) == want
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+def test_counted_circuit_is_the_kernels_function(n_keys):
+    # The DAG whose gates the bound counts computes AES-MMO (both PRG keys).
+    planes = np.random.default_rng(n_keys).integers(0, 1 << 32, (128, 4), dtype=np.uint32)
+    dag, outs = op_count.trace_mmo((op_count.RK_MASKS_L, op_count.RK_MASKS_R)[:n_keys])
+    want = prg_planes(to_carrier(planes))[:n_keys]
+    assert np.array_equal(op_count.evaluate(dag, outs, planes),
+                          np.concatenate([from_carrier(w) for w in want]))
+
+
+def test_parse_sass():
+    text = (
+        "\t\tFunction : prg_bm_kernel\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+        "                                                  /* 0x000fe20000000800 */\n"
+        "        /*0010*/                   LOP3.LUT R4, R2, R3, R5, 0x96, !PT ;\n"
+        "        /*0020*/                @P1 LOP3.LUT R4, R2, R3, R5, 0x96, !PT ;\n"
+        "        /*0030*/               @!P0 BRA 0x70 ;\n"
+        "\t\tFunction : mmo_bm_canon_kernel\n"
+        "        /*0000*/                   EXIT ;\n"
+    )
+    assert build.parse_sass(text) == {
+        "prg_bm_kernel": {"LDC": 1, "LOP3": 2, "BRA": 1},
+        "mmo_bm_canon_kernel": {"EXIT": 1},
+    }
+
+
+def test_parse_ptxas():
+    text = (
+        "ptxas info    : Compiling entry function 'prg_bm_kernel' for 'sm_90a'\n"
+        "ptxas info    : Function properties for prg_bm_kernel\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, 384 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function 'mmo_bm_canon_kernel' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 170 registers\n"
+    )
+    assert build.parse_ptxas(text) == {
+        "prg_bm_kernel": dict(
+            registers=168, stack_bytes=8, spill_store_bytes=4, spill_load_bytes=4
+        ),
+        "mmo_bm_canon_kernel": dict(
+            registers=170, stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0
+        ),
+    }
+
+
+def test_chip_smoke_vectors_are_the_frozen_ones():
+    assert chip_smoke.VECTORS == VECTORS
+
+
+def test_chip_smoke_without_cuda_fails_and_prints_no_result():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
