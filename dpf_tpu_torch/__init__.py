@@ -1,10 +1,12 @@
 """dpf_tpu_torch — the PyTorch/CUDA port of ``dpf_tpu``, for NVIDIA Hopper.
 
 A second package beside the JAX reference: the same key bytes go in and the
-same output bytes come out.  This slice carries the compat profile (keys
+same output bytes come out.  It carries the compat profile (keys
 byte-compatible with dkales/dpf-go) from host Gen to full-domain evaluation,
 whose PRG and leaf convert run as hand-written CUDA kernels
-(``ops/csrc/aes_mmo.cu``).  The package imports neither JAX nor ``dpf_tpu``.
+(``ops/csrc/aes_mmo.cu``), and the same path for the ChaCha fast profile in
+:mod:`dpf_tpu_torch.fast` (kernels ``ops/csrc/chacha_expand.cu``).  The
+package imports neither JAX nor ``dpf_tpu``.
 
 Reference-parity scalar API (dpf/dpf.go: Gen, Eval, EvalFull):
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import fast
 from .core import spec
 from .core.keys import KeyBatch, gen_batch
 from .core.spec import key_len
@@ -38,6 +41,7 @@ __all__ = [
     "gen_batch",
     "eval_full_batch",
     "key_len",
+    "fast",
 ]
 
 

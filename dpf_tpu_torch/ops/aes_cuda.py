@@ -70,7 +70,7 @@ def _launch(cfn, kernel: str, S: torch.Tensor, outs) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         rc = cfn(S.data_ptr(), *(o.data_ptr() for o in outs), S.shape[1], stream)
     if rc:
-        msg = build.load().dpf_error_string(rc).decode()
+        msg = build.load("aes_mmo").dpf_error_string(rc).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")
 
 
@@ -81,7 +81,7 @@ def prg_planes_bm(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return prg_planes_bm_plain(S)
     _check_planes(S)
     L, R = torch.empty_like(S), torch.empty_like(S)
-    _launch(build.load().dpf_prg_bm, "prg_bm_kernel", S, (L, R))
+    _launch(build.load("aes_mmo").dpf_prg_bm, "prg_bm_kernel", S, (L, R))
     prg_planes_bm.launches += 1
     return L, R
 
@@ -96,7 +96,7 @@ def mmo_planes_bm_canon(S: torch.Tensor) -> torch.Tensor:
         return mmo_planes_bm_canon_plain(S)
     _check_planes(S)
     O = torch.empty_like(S)
-    _launch(build.load().dpf_mmo_bm_canon, "mmo_bm_canon_kernel", S, (O,))
+    _launch(build.load("aes_mmo").dpf_mmo_bm_canon, "mmo_bm_canon_kernel", S, (O,))
     mmo_planes_bm_canon.launches += 1
     return O
 

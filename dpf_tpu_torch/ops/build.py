@@ -1,8 +1,10 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles ``csrc/aes_mmo.cu`` (plain C interface, no PyTorch
-headers) into a shared library under ``build/`` beside the package, named by
-a hash of the sources and flags, so an unchanged tree reuses its build.
+``nvcc`` compiles each source of :data:`LIBRARIES` (``csrc/aes_mmo.cu``,
+``csrc/chacha_expand.cu``; plain C interfaces, no PyTorch headers) into a
+shared library of its own under ``build/`` beside the package, named by a
+hash of its source, headers and flags, so an unchanged tree reuses its
+build.  :func:`build_all` runs the nvcc processes side by side.
 ``-Xptxas -v`` output (registers, spills per kernel) is kept beside the
 library; :func:`ptxas_report` parses it, and :func:`sass_report` counts the
 built kernels' machine instructions.  Nothing is built at import.
@@ -18,17 +20,44 @@ import re
 import shutil
 import subprocess
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCE = CSRC / "aes_mmo.cu"
-HEADERS = (CSRC / "sbox_bp113.cuh",)
+# Library name -> (its source, the headers it includes).  Each source builds
+# into a library of its own, all of them in parallel (one nvcc each).
+LIBRARIES = {
+    "aes_mmo": (CSRC / "aes_mmo.cu", (CSRC / "sbox_bp113.cuh",)),
+    "chacha_expand": (CSRC / "chacha_expand.cu", ()),
+}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dpf_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _BUILD_TIMEOUT_S = 600
+
+_vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# Library name -> {C function: (argtypes, restype)}.
+_SIGNATURES = {
+    "aes_mmo": {
+        "dpf_prg_bm": ([_vp, _vp, _vp, _ll, _vp], _int),
+        "dpf_mmo_bm_canon": ([_vp, _vp, _ll, _vp], _int),
+        "dpf_error_string": ([_int], ctypes.c_char_p),
+    },
+    "chacha_expand": {
+        # state, its row and key strides, K, W, levels, scw, key stride,
+        # tcw, key stride, [fcw, key stride,] out, [row stride,] key stride,
+        # stream
+        "dpf_chacha_tail": (
+            [_vp, _ll, _ll, _ll, _ll, _int, _vp, _ll, _vp, _ll, _vp, _ll,
+             _vp, _ll, _vp], _int),
+        "dpf_chacha_fused": (
+            [_vp, _ll, _ll, _ll, _ll, _int, _vp, _ll, _vp, _ll, _vp, _ll,
+             _ll, _vp], _int),
+        "dpf_chacha_error_string": ([_int], ctypes.c_char_p),
+    },
+}
 
 
 def _nvcc() -> str:
@@ -39,45 +68,54 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _stem() -> str:
+def _stem(name: str) -> str:
+    """``name`` plus a hash of its source, headers and the flags."""
+    source, headers = LIBRARIES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCE, *HEADERS):
+    for f in (source, *headers):
         h.update(f.read_bytes())
-    return f"{SOURCE.stem}-{h.hexdigest()[:16]}"
+    return f"{name}-{h.hexdigest()[:16]}"
 
 
-def library_path() -> Path:
-    """Compile the kernels unless this tree's build exists; return the .so."""
-    stem = _stem()
+def library_path(name: str) -> Path:
+    """Compile library ``name`` unless this tree's build exists; return the
+    .so."""
+    stem = _stem(name)
     lib = BUILD_DIR / f"{stem}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCE)]
+    source = LIBRARIES[name][0]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)]
     proc = subprocess.run(
         cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S
     )
     if proc.returncode:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            f"nvcc failed on {source.name} ({proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
         )
     (BUILD_DIR / f"{stem}.ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 
 
+def build_all() -> dict[str, Path]:
+    """Build every library at once, one nvcc process each."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        paths = dict(zip(LIBRARIES, pool.map(library_path, LIBRARIES)))
+    return paths
+
+
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The built kernels' library, with every C function's signature set."""
-    lib = ctypes.CDLL(str(library_path()))
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.dpf_prg_bm.argtypes = [vp, vp, vp, ll, vp]
-    lib.dpf_prg_bm.restype = ctypes.c_int
-    lib.dpf_mmo_bm_canon.argtypes = [vp, vp, ll, vp]
-    lib.dpf_mmo_bm_canon.restype = ctypes.c_int
-    lib.dpf_error_string.argtypes = [ctypes.c_int]
-    lib.dpf_error_string.restype = ctypes.c_char_p
+def load(name: str) -> ctypes.CDLL:
+    """Library ``name``, built at first use, with its C functions'
+    signatures set."""
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
 
 
@@ -111,8 +149,11 @@ def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
 
 
 def ptxas_report() -> dict[str, dict[str, int]]:
-    """:func:`parse_ptxas` of this tree's build log."""
-    return parse_ptxas((BUILD_DIR / f"{_stem()}.ptxas.txt").read_text())
+    """:func:`parse_ptxas` of this tree's build logs, every library."""
+    out: dict[str, dict[str, int]] = {}
+    for name in LIBRARIES:
+        out.update(parse_ptxas((BUILD_DIR / f"{_stem(name)}.ptxas.txt").read_text()))
+    return out
 
 
 def parse_sass(text: str) -> dict[str, Counter]:
@@ -133,10 +174,13 @@ def parse_sass(text: str) -> dict[str, Counter]:
 
 
 def sass_report() -> dict[str, Counter]:
-    """:func:`parse_sass` of this tree's built library."""
+    """:func:`parse_sass` of this tree's built libraries."""
     cuobjdump = Path(_nvcc()).with_name("cuobjdump")
-    proc = subprocess.run(
-        [str(cuobjdump), "-sass", str(library_path())],
-        capture_output=True, text=True, timeout=120, check=True,
-    )
-    return parse_sass(proc.stdout)
+    out: dict[str, Counter] = {}
+    for name in LIBRARIES:
+        proc = subprocess.run(
+            [str(cuobjdump), "-sass", str(library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True,
+        )
+        out.update(parse_sass(proc.stdout))
+    return out

@@ -1,4 +1,7 @@
-"""How many logic instructions the AES-MMO kernels' work takes.
+"""How many instructions the kernels' work takes.
+
+The fast profile's count (ChaCha12, :func:`chacha_instructions`) is at the
+end of this module.  The rest counts the compat profile's AES-MMO:
 
 ``chip_smoke.py`` divides this count by the card's logic-instruction issue
 rate to get each kernel's operation bound.  It is counted, not estimated by
@@ -213,3 +216,55 @@ def lop3_per_column(n_keys: int) -> int:
     (32 blocks): 2 for the PRG (keys L and R), 1 for the leaf convert (L)."""
     dag, outs = trace_mmo((RK_MASKS_L, RK_MASKS_R)[:n_keys])
     return lop3_cover(dag, outs)
+
+
+# ---------------------------------------------------------------------------
+# ChaCha12 (the fast profile's kernels, csrc/chacha_expand.cu)
+# ---------------------------------------------------------------------------
+
+CHACHA_DOUBLE_ROUNDS = 6  # ChaCha12 (core/chacha_np.ROUNDS // 2)
+CHACHA_QUARTER_ROUNDS = 8 * CHACHA_DOUBLE_ROUNDS
+# One quarter round: 4 adds (IADD3), 4 xors (LOP3), 4 rotates (SHF, a funnel
+# shift; in torch each rotate is a shift, a masked shift and an OR).
+QUARTER_ROUND = Counter(IADD=4, LOP3=4, SHF=4)
+# The level step's work around its core: 2 control-bit extracts and 2 clears
+# (LOP3), the mask 0 - t (IADD), 8 seed-CW and 2 t-CW XORs each under the
+# mask (one LOP3 each: a ^ (b & m)).
+LEVEL_STEP_EXTRA = Counter(LOP3=2 + 2 + 8 + 2, IADD=1)
+# The leaf convert's: the mask (IADD) and 16 final-CW XORs under it (LOP3).
+LEAF_EXTRA = Counter(LOP3=16, IADD=1)
+
+
+# The fast profile's counter words (state words 12..15) are zero.
+CHACHA_ZERO_WORDS = range(12, 16)
+
+
+def chacha_core_ops(n_out: int) -> Counter:
+    """Instructions of one ChaCha12 block with the feed-forward on its first
+    ``n_out`` words, by kind.  An operation with a zero word as an operand
+    is a copy and is not counted: the first column round's XOR of each
+    counter word and the counter words' feed-forward adds.  Adds of the
+    nonzero constants are counted."""
+    ops = Counter()
+    for kind, n in QUARTER_ROUND.items():
+        ops[kind] = n * CHACHA_QUARTER_ROUNDS
+    ops["LOP3"] -= len(CHACHA_ZERO_WORDS)
+    ops["IADD"] += sum(i not in CHACHA_ZERO_WORDS for i in range(n_out))
+    return ops
+
+
+def chacha_ops(kind: str) -> Counter:
+    """Instructions by kind of one GGM expansion (``"expand"``: the core
+    with 8 output words and the level step's CW work) or one leaf convert
+    (``"leaf"``: 16 output words and the final CW)."""
+    if kind == "expand":
+        return chacha_core_ops(8) + LEVEL_STEP_EXTRA
+    if kind == "leaf":
+        return chacha_core_ops(16) + LEAF_EXTRA
+    raise ValueError(f"kind must be expand or leaf, got {kind!r}")
+
+
+def chacha_instructions(kind: str) -> int:
+    """All instructions of :func:`chacha_ops`: 595 per expansion, 601 per
+    leaf convert."""
+    return sum(chacha_ops(kind).values())

@@ -15,10 +15,16 @@ import torch
 
 torch.set_num_threads(1)
 
+from collections import Counter  # noqa: E402
+
+from torch.overrides import TorchFunctionMode  # noqa: E402
+
 import chip_smoke  # noqa: E402
 import dpf_tpu_torch as port  # noqa: E402
+from dpf_tpu_torch import fast  # noqa: E402
 from dpf_tpu_torch.models import dpf as port_dpf  # noqa: E402
-from dpf_tpu_torch.ops import aes_cuda, build, gen_sbox, op_count  # noqa: E402
+from dpf_tpu_torch.models import dpf_chacha as port_dc  # noqa: E402
+from dpf_tpu_torch.ops import aes_cuda, build, chacha_cuda, gen_sbox, op_count  # noqa: E402
 from dpf_tpu_torch.ops.aes_bitslice import from_carrier, prg_planes, to_carrier  # noqa: E402
 from dpf_tpu_torch.ops.sbox_circuit import sbox_bp113  # noqa: E402
 from test_golden_vectors import VECTORS  # noqa: E402
@@ -38,6 +44,8 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
         "import chip_smoke, dpf_tpu_torch, dpf_tpu_torch.interop\n"
         "import dpf_tpu_torch.ops.aes_cuda, dpf_tpu_torch.ops.build\n"
         "import dpf_tpu_torch.ops.gen_sbox, dpf_tpu_torch.ops.op_count, dpf_tpu_torch.models.dpf\n"
+        "import dpf_tpu_torch.fast, dpf_tpu_torch.models.dpf_chacha, dpf_tpu_torch.ops.chacha_cuda\n"
+        "import dpf_tpu_torch.core.chacha_np, dpf_tpu_torch.core.keys_chacha\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -80,6 +88,125 @@ def test_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
         fn(torch.empty((128, 32), dtype=torch.int32, device="meta"))
     fn(torch.zeros((128, 32), dtype=torch.int32))  # the plain version: no launch
     assert fn.launches == before
+
+
+def test_port_source_scan_covers_the_fast_profile():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {
+        "dpf_tpu_torch/fast.py",
+        "dpf_tpu_torch/core/chacha_np.py",
+        "dpf_tpu_torch/core/keys_chacha.py",
+        "dpf_tpu_torch/models/dpf_chacha.py",
+        "dpf_tpu_torch/ops/chacha_cuda.py",
+    } <= names
+
+
+def test_fast_eval_full_batch_without_cuda_raises_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ka, _ = fast.gen_batch([5, 9], 12, np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fast.eval_full_batch(ka)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fast.EvalFull(ka.to_bytes()[0], 12)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port_dc.DeviceKeysFast(ka)
+    assert fast.eval_full_batch(ka, device="cpu").shape == (2, 512)
+
+
+def _chacha_operands(device, K=2, W=4, levels=2):
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.zeros((5, K, W), **i32), torch.zeros((K, levels, 4), **i32),
+            torch.zeros((K, levels, 2), **i32), torch.zeros((K, 16), **i32))
+
+
+@pytest.mark.parametrize("wrapper", ["fused_levels", "expand_tail"])
+def test_chacha_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
+    fn = getattr(chacha_cuda, wrapper)
+    n_args = 3 if wrapper == "fused_levels" else 4
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(*_chacha_operands("meta")[:n_args])
+    out = fn(*_chacha_operands("cpu")[:n_args])  # the plain version: no launch
+    assert out.shape == ((5, 2, 16) if wrapper == "fused_levels" else (2, 16, 16))
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize(
+    "shape, strides, ok",
+    [
+        ((1, 0, 4), (0, 0, 0), True),  # no levels: nothing is read
+        ((3, 1, 4), (4, 99, 1), True),  # one level: its stride is never used
+        ((3, 2, 4), (8, 4, 1), True),
+        ((3, 2, 4), (8, 1, 2), False),
+    ],
+)
+def test_chacha_operand_stride_check(shape, strides, ok):
+    x = torch.zeros(64, dtype=torch.int32).as_strided(shape, strides)
+    check = lambda: chacha_cuda._check("scw", x, shape, (4, 1), x.device)  # noqa: E731
+    if ok:
+        check()
+    else:
+        with pytest.raises(ValueError, match="strides"):
+            check()
+
+
+def _traced_ops(fn, *args) -> Counter:
+    """How often each torch operation runs in ``fn(*args)``.  An add or XOR
+    with a tensor that ``zeros_like`` made (or an add or XOR of two such)
+    is a copy and is not counted."""
+    folds = ("add", "__xor__")
+
+    class Count(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+            self.zeros = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", str(func))
+            out = func(*args, **(kwargs or {}))
+            zero = [any(a is z for z in self.zeros) for a in args]
+            if name == "zeros_like" or (name in folds and all(zero)):
+                self.zeros.append(out)
+            elif not (name in folds and any(zero)):
+                self.ops[name] += 1
+            return out
+
+    with Count() as mode:
+        fn(*args)
+    return mode.ops
+
+
+@pytest.mark.parametrize("n_out", [8, 16])
+def test_chacha_core_count_matches_traced_run(n_out):
+    # One torch add is one IADD, one xor one LOP3, and one rotate (shift,
+    # masked logical shift, OR) one SHF; those with a zero counter word fold.
+    seed = [torch.zeros((2, 3), dtype=torch.int32) for _ in range(4)]
+    ops = _traced_ops(port_dc._chacha_core, seed, port_dc._DSX, n_out)
+    rotates = ops["__or__"]
+    assert ops["__lshift__"] == ops["__rshift__"] == ops["__and__"] == rotates
+    assert op_count.chacha_core_ops(n_out) == Counter(
+        IADD=ops["add"], LOP3=ops["__xor__"], SHF=rotates
+    )
+
+
+@pytest.mark.parametrize("kind", ["expand", "leaf"])
+def test_chacha_cw_work_count_matches_traced_run(kind):
+    # Around the core: each AND is one LOP3, and each XOR folds into the LOP3
+    # of the AND that feeds it; the mask 0 - t is one IADD.
+    S = [torch.zeros((2, 3), dtype=torch.int32) for _ in range(4)]
+    T = torch.zeros((2, 3), dtype=torch.int32)
+    w = torch.zeros(2, dtype=torch.int32)
+    if kind == "expand":
+        ops = _traced_ops(port_dc._level_step_cc, S, T, [w] * 4, w, w)
+        core, extra = _traced_ops(port_dc._chacha_core, S, port_dc._DSX, 8), op_count.LEVEL_STEP_EXTRA
+    else:
+        ops = _traced_ops(port_dc._convert_leaves_cc, S, T, [w] * 16)
+        core, extra = _traced_ops(port_dc._chacha_core, S, port_dc._DSL, 16), op_count.LEAF_EXTRA
+    ands = ops["__and__"] - core["__and__"]
+    assert ops["__xor__"] - core["__xor__"] <= ands
+    assert extra == Counter(LOP3=ands, IADD=ops["neg"])
+    assert op_count.chacha_instructions(kind) == {"expand": 595, "leaf": 601}[kind]
 
 
 def test_eval_full_device_rejects_unknown_impl():
