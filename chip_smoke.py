@@ -8,7 +8,10 @@ per source, side by side), holds each against its plain PyTorch version on
 the card, runs the golden vectors, and drives both profiles' main paths (host
 ``gen_batch`` -> ``eval_full_batch`` at n=20 with 1024 keys: the compat
 profile, BASELINE.json's config, then the ChaCha fast profile,
-``dpf_tpu_torch.fast``) with launch counters zeroed just before each path and
+``dpf_tpu_torch.fast``), then pointwise evaluation of both profiles
+(``eval_points_batch`` at BASELINE.json's config 3, n=30 with 256 keys at
+4096 queries each, and the level-grouped walk at config 5's shape, n=32 with
+32 levels of 128 gates), with launch counters zeroed just before each path and
 read just after.  It checks each kernel path against the plain path and the
 chunked split against the unchunked one (and the fast profile's deep-tree and
 whole-tree routes), and times the paths and each kernel with CUDA events
@@ -16,7 +19,8 @@ whole-tree routes), and times the paths and each kernel with CUDA events
 a sleep kernel, so the host's launch time between them does not count; its
 ``event_ms``: one call at a time, events around each).
 Each kernel's bound counts its instructions (``dpf_tpu_torch/ops/op_count.py``:
-LOP3 for AES-MMO, IADD/LOP3/SHF for ChaCha12) over the card's issue rate, and
+LOP3 for AES-MMO, IADD/LOP3/SHF for ChaCha12; the walks: their ciphers) over
+the card's issue rate, and
 the build phase prints the built kernels' SASS instruction counts.  Every
 check is exact: this is integer cryptography, the tolerance is zero.
 
@@ -87,6 +91,17 @@ LOP3_PER_SM_CLOCK = 64  # logic instructions per SM per clock (Hopper: 4 x 16 IN
 ISSUE_PER_SM_CLOCK = 128
 SOURCE = "dpf_tpu_torch/ops/csrc/aes_mmo.cu"
 FAST_SOURCE = "dpf_tpu_torch/ops/csrc/chacha_expand.cu"
+WALK_SOURCE = "dpf_tpu_torch/ops/csrc/aes_walk.cu"
+FAST_WALK_SOURCE = "dpf_tpu_torch/ops/csrc/chacha_walk.cu"
+# BASELINE.json config 3: pointwise Eval at 2^20 random indices, n=30, 256 keys.
+POINT_LOG_N, POINT_K, POINT_Q = 30, 256, 4096
+# Config 5's shape: n=32 FSS gates, 4096 keys = 32 levels x 128 gates, groups=1,
+# 1024 queries per gate.
+GATE_LOG_N, GATE_G, GATE_Q = 32, 128, 1024
+# The walks' kernel checks: every (log_n, K, Q) of these (compat), every
+# (log_n, K) at Q = 100 (fast).
+COMPAT_WALK_LOG_N, COMPAT_WALK_K, COMPAT_WALK_Q = (6, 13, 33), (5, 8, 256), (13, 100, 4096)
+FAST_WALK_LOG_N, FAST_WALK_K, FAST_WALK_Q = (9, 14, 34), (9, 128, 256), 100
 # The fast profile's kernel checks, (K, W, levels): every W in {1, 3, 128,
 # 4096}, L in {0, 1, 5} and K in {1, 9, 1024}, the headline tail (1024 keys,
 # 128 entry nodes, 4 levels) and the headline prefix groups (W 1 for 5
@@ -159,33 +174,50 @@ def host_ms(fn, warmup: int = 2, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn) -> tuple[float, float, dict[str, tuple[float, int]]]:
-    """Run ``fn`` once under torch.profiler -> (host wall ms, device span ms
-    from the first device event's start to the last one's end, {device event
-    name: (total device us, count)}) over kernels, copies and memsets."""
+# Host time traced before and after the call.  torch.profiler keeps only the
+# device events whose timestamps, moved to the host's clock, fall inside its
+# window; chip runs of this script lost kernels at the edges of a tight
+# window (one trace held no device event, others lacked their first kernel).
+TRACE_MARGIN_S = 0.02
+
+
+def device_breakdown(fn, expect: str, attempts: int = 3
+                     ) -> tuple[float, float, dict[str, tuple[float, int]]]:
+    """Run ``fn`` once under torch.profiler -> (host wall ms of the call,
+    device span ms from the first device event's start to the last one's
+    end, {device event name: (total device us, count)}) over kernels,
+    copies and memsets.  A trace without the kernel ``expect`` is taken
+    again, at most ``attempts`` times in all, each miss printed."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy: dict[str, tuple[float, int]] = {}
-    starts, ends = [], []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us, count = busy.get(evt.name, (0.0, 0))
-        busy[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
-        starts.append(evt.time_range.start)
-        ends.append(evt.time_range.end)
-    return wall_ms, (max(ends) - min(starts)) / 1e3, busy
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(TRACE_MARGIN_S)
+        busy: dict[str, tuple[float, int]] = {}
+        starts, ends = [], []
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us, count = busy.get(evt.name, (0.0, 0))
+            busy[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
+            starts.append(evt.time_range.start)
+            ends.append(evt.time_range.end)
+        if expect in busy:
+            return wall_ms, (max(ends) - min(starts)) / 1e3, busy
+        log(f"[profile] trace attempt {attempt} of {attempts} holds {len(starts)} device "
+            f"events and no {expect}")
+    raise AssertionError(f"torch.profiler recorded no {expect} in {attempts} traces")
 
 
-def log_breakdown(card: str, entry: str, fn) -> None:
+def log_breakdown(card: str, entry: str, fn, expect: str) -> None:
     """Print :func:`device_breakdown` of one run of ``fn``."""
-    wall_ms, span_ms, busy = device_breakdown(fn)
+    wall_ms, span_ms, busy = device_breakdown(fn, expect)
     total = sum(us for us, _ in busy.values()) / 1e3
     n_events = sum(count for _, count in busy.values())
     log(f"[profile] {card}: {entry} traced: wall {wall_ms:.3f} ms, device span "
@@ -220,6 +252,8 @@ def _wrappers() -> dict:
         "mmo_bm_canon_kernel": aes_cuda.mmo_planes_bm_canon,
         "fused_levels_kernel": chacha_cuda.fused_levels,
         "expand_tail_kernel": chacha_cuda.expand_tail,
+        "walk_bm_kernel": aes_cuda.eval_points_walk_planes,
+        "walk_kernel": chacha_cuda.walk,
     }
 
 
@@ -304,7 +338,8 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
     launches = read_launches()
     log(f"[fast main] n={LOG_N} K={K}: launches over 2 evaluations {launches}")
     if launches != {"prg_bm_kernel": 0, "mmo_bm_canon_kernel": 0,
-                    "fused_levels_kernel": 4, "expand_tail_kernel": 2}:
+                    "fused_levels_kernel": 4, "expand_tail_kernel": 2,
+                    "walk_bm_kernel": 0, "walk_kernel": 0}:
         raise AssertionError("expected 2 fused-levels + 1 tail launch per evaluation")
     if out_a.shape != (K, 1 << (LOG_N - 3)) or out_a.dtype != np.uint8:
         raise AssertionError(f"fast output shape {out_a.shape} {out_a.dtype}")
@@ -429,7 +464,269 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
         ("fast eval_full_device", lambda: fast.eval_full_device(dk)),
         ("fast eval_full_batch", lambda: fast.eval_full_batch(ka)),
     ):
-        log_breakdown(card, entry_name, fn)
+        log_breakdown(card, entry_name, fn, "expand_tail_kernel")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Pointwise evaluation (phases 17-21)
+# ---------------------------------------------------------------------------
+
+
+def compat_walk_args(kb, xs: np.ndarray, dev) -> tuple:
+    """The compat walk's operands for xs uint64[K, Q] on ``dev``, as
+    ``eval_points`` prepares them (the last one is nu)."""
+    from dpf_tpu_torch.models import dpf as mdpf
+
+    xs_hi, xs_lo = mdpf._split_words(mdpf._pad_queries(xs), kb.log_n, dev)
+    return mdpf._eval_points_walk_body(kb.nu, kb.log_n, *mdpf._point_masks(kb, dev),
+                                       xs_hi, xs_lo, lambda *a: a)
+
+
+def point_batch(gen, log_n: int, k: int, q: int, seed: int):
+    """(alphas, party keys, xs uint64[k, q] random with xs[:, 0] = alphas)."""
+    rng = np.random.default_rng(seed)
+    alphas = rng.integers(0, 1 << log_n, size=k, dtype=np.uint64)
+    ka, kb = gen(alphas, log_n, rng)
+    xs = rng.integers(0, 1 << log_n, size=(k, q), dtype=np.uint64)
+    xs[:, 0] = alphas
+    return alphas, ka, kb, xs
+
+
+def pack_bits(bits: np.ndarray) -> np.ndarray:
+    from dpf_tpu_torch.core import bitpack
+
+    return bitpack.pack_bits(bits)
+
+
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor, where: str) -> int:
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} != plain at {where}")
+    return max_abs_err(got, want)
+
+
+def point_profiles() -> dict:
+    """Walk kernel -> (profile, eval_points_batch, model, gen_batch, spec
+    eval_point, kernel source, TPU kernel it replaces)."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.core import chacha_np, spec
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+
+    return {
+        "walk_bm_kernel": ("compat", P.eval_points_batch, mdpf, P.gen_batch,
+                           spec.eval_point, WALK_SOURCE, "dpf_tpu/ops/aes_pallas.py:362"),
+        "walk_kernel": ("fast", fast.eval_points_batch, mdc, fast.gen_batch,
+                        chacha_np.eval_point, FAST_WALK_SOURCE,
+                        "dpf_tpu/ops/chacha_pallas.py:127"),
+    }
+
+
+def point_headline(kname: str, name: str, entry, gen, spec_point):
+    """Phase 17 for one profile: BASELINE config 3 through its
+    ``eval_points_batch``, launch counters zeroed just before the two
+    parties' calls -> (their launches, party keys, xs, party 0's bits)."""
+    alphas, ka, kb, xs = point_batch(gen, POINT_LOG_N, POINT_K, POINT_Q, seed=30)
+    zero_launches()
+    out_a = entry(ka, xs)
+    out_b = entry(kb, xs)
+    launches = read_launches()
+    log(f"[{name} points] n={POINT_LOG_N} K={POINT_K} Q={POINT_Q}: launches over 2 "
+        f"calls {launches}")
+    if launches != {**{n: 0 for n in launches}, kname: 2}:
+        raise AssertionError(f"expected one {kname} launch per eval_points_batch call")
+    if out_a.shape != (POINT_K, POINT_Q) or out_a.dtype != np.uint8:
+        raise AssertionError(f"{name} points output {out_a.shape} {out_a.dtype}")
+    if not np.array_equal(out_a ^ out_b, (xs == alphas[:, None]).astype(np.uint8)):
+        raise AssertionError(f"{name} points: shares do not reconstruct the indicator")
+    if not np.array_equal(entry(ka, xs, packed=True), pack_bits(out_a)):
+        raise AssertionError(f"{name} points: packed != pack_bits(unpacked)")
+    rng = np.random.default_rng(64)
+    blobs = ka.to_bytes()
+    for i, j in zip(rng.integers(0, POINT_K, 64), rng.integers(0, POINT_Q, 64)):
+        if out_a[i, j] != spec_point(blobs[i], int(xs[i, j]), POINT_LOG_N):
+            raise AssertionError(f"{name} points: key {i} query {j} != spec")
+    log(f"[{name} points] both parties' bits XOR to xs == alpha (a one at column 0 of "
+        f"each row, zero elsewhere); packed == pack_bits(bits); 64 random (key, query) "
+        f"pairs equal the numpy spec")
+    return launches[kname], ka, xs, out_a
+
+
+def point_walk(kname: str, ka, xs: np.ndarray, dev):
+    """The walk at the headline: (its wrapper's call, the plain version's
+    call, the device work of one eval_points_batch with the output left on
+    the card, what that work is, the kernel's input tensors, nu)."""
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.ops import aes_cuda, chacha_cuda
+
+    if kname == "walk_bm_kernel":
+        args = compat_walk_args(ka, xs, dev)
+        masks = mdpf._point_masks(ka, dev)
+        split = mdpf._split_words(mdpf._pad_queries(xs), POINT_LOG_N, dev)
+        return (lambda: aes_cuda.eval_points_walk_planes(*args),
+                lambda: aes_cuda.eval_points_walk_planes_plain(*args),
+                lambda: mdpf._eval_points_walk_body(
+                    ka.nu, POINT_LOG_N, *masks, *split, aes_cuda.eval_points_walk_planes),
+                "path words, leaf select and walk from the queries on the card",
+                args[:-1], args[-1])
+    args = chacha_cuda.walk_args(ka, xs, 0, dev)
+    # The high query word is read only above n = 32.
+    inputs = list(args[:6]) + ([args[6]] if POINT_LOG_N > 32 else [])
+    return (lambda: chacha_cuda.walk(*args), lambda: chacha_cuda.walk_plain(*args),
+            lambda: chacha_cuda.walk(*args).T.to(torch.uint8).contiguous(),
+            "walk and uint8 transpose from the queries on the card", inputs, args[-1])
+
+
+def point_times(card: str, kname: str, name: str, entry, ka, xs, device_fn,
+                device_work: str) -> None:
+    """Phase 18 for one profile: eval_points_batch end to end, its device
+    work, and traces of both."""
+    q_total = POINT_K * POINT_Q
+    e2e = host_ms(lambda: entry(ka, xs), warmup=1, reps=5)
+    e2e_packed = host_ms(lambda: entry(ka, xs, packed=True), warmup=1, reps=5)
+    dev_ms = cuda_ms(device_fn)
+    log(f"[{name} points time] {card}: eval_points_batch end to end (queries to the card, "
+        f"walk, D2H): {e2e:.3f} ms = {q_total / e2e / 1e3:.2f} Mpoints/s; packed "
+        f"{e2e_packed:.3f} ms = {q_total / e2e_packed / 1e3:.2f} Mpoints/s; device work "
+        f"with the output left on the card ({device_work}, CUDA events) "
+        f"{dev_ms:.4f} ms = {q_total / dev_ms / 1e3:.2f} Mpoints/s")
+    log(f"[{name} points profile] {card}: device work host launch time (returns, not "
+        f"synchronized): {enqueue_ms(device_fn):.3f} ms")
+    log_breakdown(card, f"{name} points device work", device_fn, kname)
+    log_breakdown(card, f"{name} eval_points_batch", lambda: entry(ka, xs), kname)
+
+
+def walk_kernel_checks(dev) -> dict[str, int]:
+    """Phase 19: each walk kernel against its plain version on the card, on
+    real key material -> max_abs_err by kernel."""
+    import itertools
+
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.ops import aes_cuda, chacha_cuda
+
+    err = {"walk_bm_kernel": 0, "walk_kernel": 0}
+    for log_n, k, q in itertools.product(COMPAT_WALK_LOG_N, COMPAT_WALK_K, COMPAT_WALK_Q):
+        _, ka, _, xs = point_batch(P.gen_batch, log_n, k, q, seed=log_n * k + q)
+        args = compat_walk_args(ka, xs, dev)
+        err["walk_bm_kernel"] = max(err["walk_bm_kernel"], check_equal(
+            "walk_bm_kernel", aes_cuda.eval_points_walk_planes(*args),
+            aes_cuda.eval_points_walk_planes_plain(*args), f"log_n={log_n} K={k} Q={q}"))
+    log(f"[point kernel] walk_bm_kernel == plain at every log_n in {COMPAT_WALK_LOG_N}, "
+        f"K in {COMPAT_WALK_K}, Q in {COMPAT_WALK_Q}")
+    checks = [(log_n, k, 0) for log_n, k in itertools.product(FAST_WALK_LOG_N, FAST_WALK_K)]
+    for log_n, k, groups in checks + [(16, 128, 2)]:
+        q = FAST_WALK_Q
+        if groups:  # a level-grouped batch: the raw queries of its G gates
+            _, ka, _, _ = point_batch(fast.gen_batch, log_n, k, 1, seed=log_n + k)
+            xs = np.random.default_rng(k).integers(
+                0, 1 << log_n, size=(k // (groups * log_n), q), dtype=np.uint64)
+        else:
+            _, ka, _, xs = point_batch(fast.gen_batch, log_n, k, q, seed=log_n + k)
+        args = chacha_cuda.walk_args(ka, xs, groups, dev)
+        err["walk_kernel"] = max(err["walk_kernel"], check_equal(
+            "walk_kernel", chacha_cuda.walk(*args), chacha_cuda.walk_plain(*args),
+            f"log_n={log_n} K={k} Q={q} groups={groups}"))
+    log(f"[point kernel] walk_kernel == plain at every log_n in {FAST_WALK_LOG_N}, K in "
+        f"{FAST_WALK_K}, Q={FAST_WALK_Q}, and on grouped operands (n=16, K=128, groups=2)")
+    return err
+
+
+def point_grouped(name: str, model, gen, spec_point, dev) -> None:
+    """Phase 20 for one profile: the level-grouped walk at config 5's shape,
+    kernel against plain (reduce, packed), spot-checked against the spec at
+    the masked queries."""
+    k = GATE_LOG_N * GATE_G
+    _, kg, _, _ = point_batch(gen, GATE_LOG_N, k, 1, seed=32)
+    xs = np.random.default_rng(5).integers(0, 1 << GATE_LOG_N, size=(GATE_G, GATE_Q),
+                                           dtype=np.uint64)
+    got = model.eval_points_level_grouped(kg, xs, 1, reduce=True, packed=True, device=dev)
+    want = model.eval_points_level_grouped(kg, xs, 1, reduce=True, packed=True, device=dev,
+                                           impl="plain")
+    if got.shape != (GATE_G, GATE_Q // 32) or not np.array_equal(got, want):
+        raise AssertionError(f"{name} grouped: kernel != plain (reduce, packed)")
+    full = model.eval_points_level_grouped(kg, xs, 1, device=dev)
+    fold = np.bitwise_xor.reduce(full.reshape(GATE_LOG_N, GATE_G, GATE_Q), axis=0)
+    if not np.array_equal(pack_bits(fold), got):
+        raise AssertionError(f"{name} grouped: reduced != the fold of the full rows")
+    rng = np.random.default_rng(65)
+    blobs = kg.to_bytes()
+    for r, j in zip(rng.integers(0, k, 32), rng.integers(0, GATE_Q, 32)):
+        shift = np.uint64(GATE_LOG_N - 1 - r // GATE_G)
+        x = int((xs[r % GATE_G, j] >> shift) << shift)
+        if full[r, j] != spec_point(blobs[r], x, GATE_LOG_N):
+            raise AssertionError(f"{name} grouped: row {r} query {j} != spec")
+    log(f"[{name} grouped] n={GATE_LOG_N}, {GATE_LOG_N} levels x {GATE_G} gates, "
+        f"{GATE_Q} queries: kernel == plain (reduce, packed), reduced == fold of the "
+        f"full rows, 32 (key, query) pairs equal the spec at their masked queries")
+
+
+def walk_bound_ms(kname: str, nu: int, inputs, sm_clocks_per_s: float):
+    """The walk's least time at the headline -> (bound ms, "operations" or
+    "bytes", text): its ciphers' instructions (ops/op_count.py) over the
+    issue rate, against each input read once and the output written once."""
+    from dpf_tpu_torch.ops import op_count
+
+    q_total = POINT_K * POINT_Q
+    if kname == "walk_bm_kernel":
+        columns = q_total // 32
+        lop3 = op_count.walk_lop3_per_column(nu) * columns
+        ops_ms = lop3 / (LOP3_PER_SM_CLOCK * sm_clocks_per_s) * 1e3
+        text = f"{lop3:.4e} LOP3 ({columns} columns of {nu} PRGs + 1 MMO)"
+        out_bytes = 4 * columns
+    else:
+        ops = op_count.walk_chacha_ops(nu)
+        alu, total = (ops["LOP3"] + ops["SHF"]) * q_total, sum(ops.values()) * q_total
+        ops_ms = max(alu / LOP3_PER_SM_CLOCK, total / ISSUE_PER_SM_CLOCK) / sm_clocks_per_s * 1e3
+        text = (f"{alu:.4e} ALU-pipe at {LOP3_PER_SM_CLOCK}/clk/SM, {total:.4e} in all at "
+                f"{ISSUE_PER_SM_CLOCK}/clk/SM ({q_total} lanes of {nu} expansions + 1 leaf)")
+        out_bytes = 4 * q_total
+    nbytes = sum(4 * a.numel() for a in inputs) + out_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    text += f" -> {ops_ms:.4f} ms; {nbytes:.4e} B -> {bytes_ms:.4f} ms"
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", text
+
+
+def point_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
+    """Phases 17-21, pointwise evaluation of both profiles; returns the two
+    walk kernels' rows of the kernels line.  The traces come first: chip
+    runs that traced after the plain versions' hundreds of thousands of
+    small launches recorded few or no device events."""
+    profiles = point_profiles()
+    head = {}
+    for kname, (name, entry, _, gen, spec_point, _, _) in profiles.items():
+        n_launch, ka, xs, out_a = point_headline(kname, name, entry, gen, spec_point)  # 17
+        kern, plain, device_fn, device_work, inputs, nu = point_walk(kname, ka, xs, dev)
+        point_times(card, kname, name, entry, ka, xs, device_fn, device_work)  # 18
+        head[kname] = (n_launch, ka, xs, out_a, kern, plain, inputs, nu)
+
+    err = walk_kernel_checks(dev)  # 19
+    rows = []
+    for kname, (name, _, model, gen, spec_point, source, replaces) in profiles.items():
+        n_launch, ka, xs, out_a, kern, plain, inputs, nu = head[kname]
+        # 20. The plain path at the headline, and the level-grouped walk.
+        if not np.array_equal(model.eval_points(ka, xs, device=dev, impl="plain"), out_a):
+            raise AssertionError(f"{name} points: kernel path != plain path")
+        log(f"[{name} points] kernel path == plain path at n={POINT_LOG_N}, K={POINT_K}, "
+            f"Q={POINT_Q}")
+        point_grouped(name, model, gen, spec_point, dev)
+
+        # 21. The kernel alone at the headline, its bound and its plain version.
+        bound_ms, bound_by, text = walk_bound_ms(kname, nu, inputs, sm_clocks_per_s)
+        k_ms, e_ms = kernel_ms(kern), cuda_ms(kern)
+        p_ms = cuda_ms(plain, warmup=1, reps=3)
+        log(f"[{name} points time] {card}: {kname} at n={POINT_LOG_N}, K={POINT_K}, "
+            f"Q={POINT_Q}, nu={nu}: kernel {k_ms:.4f} ms (queued; {e_ms:.4f} ms one call at "
+            f"a time), plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({text}), "
+            f"{100 * bound_ms / k_ms:.1f} % of the bound")
+        rows.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launch, "max_abs_err": err[kname], "ms": k_ms, "event_ms": e_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
     return rows
 
 
@@ -516,7 +813,8 @@ def main() -> int:
     nu = LOG_N - 7
     log(f"[main] n={LOG_N} K={K}: launches over 2 evaluations {launches}")
     if launches != {"prg_bm_kernel": 2 * nu, "mmo_bm_canon_kernel": 2,
-                    "fused_levels_kernel": 0, "expand_tail_kernel": 0}:
+                    "fused_levels_kernel": 0, "expand_tail_kernel": 0,
+                    "walk_bm_kernel": 0, "walk_kernel": 0}:
         raise AssertionError(f"expected {nu} PRG + 1 leaf launch per evaluation")
     if out_a.shape != (K, 1 << (LOG_N - 3)) or out_a.dtype != np.uint8:
         raise AssertionError(f"output shape {out_a.shape} {out_a.dtype}")
@@ -587,9 +885,10 @@ def main() -> int:
         ("eval_full_device", lambda: mdpf.eval_full_device(dk)),
         ("eval_full_batch", lambda: P.eval_full_batch(ka)),
     ):
-        log_breakdown(card, entry, fn)
+        log_breakdown(card, entry, fn, "prg_bm_kernel")
 
     rows_out += fast_phases(dev, card, n_sm * clock_hz)
+    rows_out += point_phases(dev, card, n_sm * clock_hz)
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     log(f"[card] {card}")

@@ -4,9 +4,11 @@ A second package beside the JAX reference: the same key bytes go in and the
 same output bytes come out.  It carries the compat profile (keys
 byte-compatible with dkales/dpf-go) from host Gen to full-domain evaluation,
 whose PRG and leaf convert run as hand-written CUDA kernels
-(``ops/csrc/aes_mmo.cu``), and the same path for the ChaCha fast profile in
-:mod:`dpf_tpu_torch.fast` (kernels ``ops/csrc/chacha_expand.cu``).  The
-package imports neither JAX nor ``dpf_tpu``.
+(``ops/csrc/aes_mmo.cu``), and to pointwise evaluation, whose whole walk is
+one kernel (``ops/csrc/aes_walk.cu``); the same paths for the ChaCha fast
+profile are in :mod:`dpf_tpu_torch.fast` (kernels
+``ops/csrc/chacha_expand.cu``, ``ops/csrc/chacha_walk.cu``).  The package
+imports neither JAX nor ``dpf_tpu``.
 
 Reference-parity scalar API (dpf/dpf.go: Gen, Eval, EvalFull):
 
@@ -18,6 +20,10 @@ Batch API:
 
     kba, kbb = dpf_tpu_torch.gen_batch(alphas, log_n)   # host, vectorized
     out      = dpf_tpu_torch.eval_full_batch(kba)       # uint8[K, 2^(n-3)]
+    bits     = dpf_tpu_torch.eval_points_batch(kba, xs)  # xs uint64[K, Q] -> uint8[K, Q]
+    words    = dpf_tpu_torch.eval_points_batch(kba, xs, packed=True)  # uint32[K, ceil(Q/32)]
+
+The level-grouped FSS form is ``models.dpf.eval_points_level_grouped``.
 
 Device evaluation runs on the card (``device=None`` means ``"cuda"``) and
 raises without one, unless the caller passes ``device="cpu"``.
@@ -40,6 +46,7 @@ __all__ = [
     "KeyBatch",
     "gen_batch",
     "eval_full_batch",
+    "eval_points_batch",
     "key_len",
     "fast",
 ]
@@ -69,3 +76,14 @@ def eval_full_batch(kb: KeyBatch, device=None, **kwargs) -> np.ndarray:
     """Full-domain evaluation of a key batch -> uint8[K, 2^(log_n-3)].
     ``kwargs`` go to :func:`dpf_tpu_torch.models.dpf.eval_full`."""
     return _dpf.eval_full(kb, device=device, **kwargs)
+
+
+def eval_points_batch(kb: KeyBatch, xs: np.ndarray, packed: bool = False,
+                      device=None) -> np.ndarray:
+    """Pointwise evaluation of a key batch at xs uint64[K, Q] -> uint8[K, Q].
+
+    ``packed=True`` returns the walk's native bit-packed form instead:
+    uint32[K, ceil(Q/32)] words, query q at word q//32 bit q%32 (LSB-first;
+    bits >= Q zero), so the device-to-host copy shrinks 32x.
+    ``core.bitpack.unpack_bits(words, Q)`` recovers the byte-per-bit form."""
+    return _dpf.eval_points(kb, xs, packed=packed, device=device)

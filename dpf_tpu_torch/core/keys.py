@@ -20,7 +20,7 @@ same ``rng`` gives the same key bytes in both packages.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -37,6 +37,9 @@ class KeyBatch:
     scw: np.ndarray  # uint32 [K, nu, 4]
     tcw: np.ndarray  # uint8  [K, nu, 2]
     fcw: np.ndarray  # uint32 [K, 4]
+    # Pointwise evaluation's lane masks per device (models/dpf._point_masks),
+    # built at first use: key material is immutable once evaluated.
+    _point_masks: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def k(self) -> int:

@@ -19,7 +19,7 @@ package's, so the same ``rng`` gives the same key bytes in both packages.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -36,6 +36,9 @@ class KeyBatchFast:
     scw: np.ndarray  # uint32 [K, nu, 4]
     tcw: np.ndarray  # uint8  [K, nu, 2]
     fcw: np.ndarray  # uint32 [K, 16]
+    # The pointwise walk's operands per (groups, device)
+    # (ops/chacha_cuda.walk_operands), built at first use.
+    _walk_ops: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def k(self) -> int:

@@ -11,11 +11,13 @@ reference's, which pins fixed-key AES-128-MMO (dpf/dpf.go:22-44).
 
     kba, kbb = fast.gen_batch(alphas, log_n)     # host, vectorized
     leaves   = fast.eval_full_batch(kba)         # uint8[K, max(2^(n-3), 64)]
+    bits     = fast.eval_points_batch(kba, xs)   # xs uint64[K, Q] -> uint8[K, Q]
 
-Gen and Eval run on the host through the numpy spec.  Full-domain
-evaluation runs on the card (``device=None`` means ``"cuda"``) through the
-kernels of ``ops/chacha_cuda.py`` and raises without one, unless the caller
-passes ``device="cpu"``.  Pointwise batches and DCF are not ported yet.
+Gen and Eval run on the host through the numpy spec.  Full-domain and
+pointwise evaluation run on the card (``device=None`` means ``"cuda"``)
+through the kernels of ``ops/chacha_cuda.py`` and raise without one, unless
+the caller passes ``device="cpu"``.  The level-grouped FSS form is
+``models.dpf_chacha.eval_points_level_grouped``.  DCF is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from .core.chacha_np import key_len
 from .core.keys_chacha import KeyBatchFast, gen_batch
 from .models.dpf_chacha import DeviceKeysFast, eval_full_device
 from .models.dpf_chacha import eval_full as _eval_full
+from .models.dpf_chacha import eval_points as _eval_points
 
 __all__ = [
     "Gen",
@@ -37,6 +40,7 @@ __all__ = [
     "gen_batch",
     "eval_full_batch",
     "eval_full_device",
+    "eval_points_batch",
     "key_len",
 ]
 
@@ -64,3 +68,12 @@ def eval_full_batch(kb: KeyBatchFast, device=None, **kwargs) -> np.ndarray:
     """Full-domain evaluation of a key batch -> uint8[K, out_bytes].
     ``kwargs`` go to :func:`dpf_tpu_torch.models.dpf_chacha.eval_full`."""
     return _eval_full(kb, device=device, **kwargs)
+
+
+def eval_points_batch(kb: KeyBatchFast, xs: np.ndarray, packed: bool = False,
+                      device=None) -> np.ndarray:
+    """Batched pointwise evaluation: xs uint64[K, Q] -> uint8[K, Q], one walk
+    launch.  ``packed=True`` returns bit-packed words uint32[K, ceil(Q/32)]
+    (query q at word q//32, bit q%32, LSB-first, tail zero), packed on the
+    device.  ``device="cpu"`` is the host route."""
+    return _eval_points(kb, xs, packed=packed, device=device)

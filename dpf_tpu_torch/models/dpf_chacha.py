@@ -36,6 +36,12 @@ schedule has no counterpart here.  A log_n <= 9
 domain (nu = 0) has no levels and takes the whole-tree route as one leaf
 convert.
 
+Pointwise evaluation (:func:`eval_points`, :func:`eval_points_level_grouped`)
+is one ``walk`` launch per call (``ops/chacha_cuda.py``): every (query, key)
+pair walks root to leaf in one thread, for any K and Q.  The JAX package
+takes its walk kernel only for K % 128 == 0 on the TPU and its XLA body
+otherwise; the port's one route gives the same bytes.
+
 On the CPU the same routes run the wrappers' plain versions, so the CPU
 tests walk the card's schedule.  ``impl="plain"`` runs the plain versions
 on either device.  There is no fallback: a configuration no kernel route
@@ -51,7 +57,7 @@ from ..core import chacha_np as cc
 from ..core.keys_chacha import KeyBatchFast, _pad_fast_batch
 from ..ops import chacha_cuda as cp
 from ..ops.aes_bitslice import from_carrier, lshr, to_carrier
-from .dpf import _resolve_device
+from .dpf import _resolve_device, _split_words
 
 
 def _s32(v: int) -> int:
@@ -308,3 +314,95 @@ def eval_full(
     dk = DeviceKeysFast(pk, device)
     words = eval_full_device(dk, max_leaf_nodes, impl)
     return from_carrier(words[: kb.k]).view("<u1").reshape(kb.k, -1)
+
+
+# ---------------------------------------------------------------------------
+# Pointwise evaluation
+# ---------------------------------------------------------------------------
+
+# impl -> walk.  None: the wrapper (the kernel on CUDA tensors, the plain
+# version on CPU tensors); "plain": the plain version on any device.
+_WALK_IMPLS = {None: cp.walk, "plain": cp.walk_plain}
+
+
+def _split_queries(xs: np.ndarray, log_n: int, device):
+    """uint64[A, B] -> (xs_hi, xs_lo) int32 carriers of the transposed
+    queries on ``device``, [B, A] each (split on the host, transposed on
+    the device); xs_hi is None when log_n <= 32."""
+    hi, lo = _split_words(xs, log_n, device)
+    return (None if hi is None else hi.T.contiguous()), lo.T.contiguous()
+
+
+def _walk_fn(impl):
+    if impl not in _WALK_IMPLS:
+        raise ValueError(f"impl must be one of {list(_WALK_IMPLS)}, got {impl!r}")
+    return _WALK_IMPLS[impl]
+
+
+def eval_points(
+    kb: KeyBatchFast, xs: np.ndarray, packed: bool = False, device=None,
+    impl: str | None = None,
+) -> np.ndarray:
+    """Batched pointwise evaluation: xs uint64[K, Q] -> uint8[K, Q], one
+    walk launch.  ``packed=True`` returns bit-packed words
+    uint32[K, ceil(Q/32)] instead (query q at word q//32, bit q%32,
+    LSB-first, tail bits zero: core/bitpack.py), packed on the device.
+    ``device=None`` is the card; ``impl="plain"`` runs the walk's plain
+    version on either device."""
+    xs = np.asarray(xs, dtype=np.uint64)
+    if xs.ndim != 2 or xs.shape[0] != kb.k:
+        raise ValueError("dpf-fast: xs must be [K, Q]")
+    if (xs >> np.uint64(kb.log_n)).any():
+        raise ValueError("dpf-fast: query index out of domain")
+    walk = _walk_fn(impl)
+    dev = _resolve_device(device)
+    return cp.eval_points_walk(kb, xs, packed=packed, device=dev, walk_fn=walk)
+
+
+def eval_points_level_grouped(
+    kb: KeyBatchFast, xs: np.ndarray, groups: int, reduce: bool = False,
+    packed: bool = False, levels=None, device=None, impl: str | None = None,
+) -> np.ndarray:
+    """FSS-support pointwise evaluation over level-major key groups.
+
+    ``kb`` holds ``groups * log_n * G`` keys, ``groups`` repeats of
+    ``log_n`` level-major blocks of ``G`` gates (models/fss.py layout); ``xs``
+    is the RAW gate queries uint64[G, Q].  Key ``i*G + g`` of each group is
+    evaluated at xs[g] with its low ``log_n - 1 - i`` bits zeroed (the
+    dyadic-prefix query); the masking happens in the walk, against the
+    per-key key_level / lowmask operands.  -> uint8[groups * log_n * G, Q];
+    with ``reduce`` the blocks XOR-fold on the device into gate shares
+    uint8[G, Q].  ``packed`` returns the same rows as uint32[., ceil(Q/32)]
+    words.
+
+    ``levels`` (a tuple of level indices) selects a subset of level blocks:
+    ``kb`` holds ``groups * len(levels) * G`` keys, block ``j`` masks its
+    queries to level ``levels[j]`` on the host, and the rows go through
+    :func:`eval_points`."""
+    xs = np.asarray(xs, dtype=np.uint64)
+    if xs.ndim != 2:
+        raise ValueError("dpf-fast: xs must be [G, Q]")
+    G = xs.shape[0]
+    if levels is not None:
+        from .dpf import _masked_level_queries
+
+        lv = tuple(int(i) for i in levels)
+        if not lv or any(i < 0 or i >= kb.log_n for i in lv):
+            raise ValueError("dpf-fast: levels must be non-empty, in [0, log_n)")
+        if kb.k != groups * len(lv) * G:
+            raise ValueError("dpf-fast: key count != groups * len(levels) * G")
+        if (xs >> np.uint64(kb.log_n)).any():
+            raise ValueError("dpf-fast: query index out of domain")
+        out = eval_points(kb, _masked_level_queries(xs, kb.log_n, lv, groups),
+                          packed=packed, device=device, impl=impl)
+        if reduce:
+            out = np.bitwise_xor.reduce(out.reshape(groups * len(lv), G, -1), axis=0)
+        return out
+    if groups < 1 or kb.k != groups * kb.log_n * G:
+        raise ValueError("dpf-fast: key count != groups * log_n * G")
+    if (xs >> np.uint64(kb.log_n)).any():
+        raise ValueError("dpf-fast: query index out of domain")
+    walk = _walk_fn(impl)
+    dev = _resolve_device(device)
+    return cp.eval_points_walk(kb, xs, groups=groups, reduce=reduce, packed=packed,
+                               device=dev, walk_fn=walk)

@@ -115,18 +115,25 @@ def _mix_columns(S: torch.Tensor) -> torch.Tensor:
 
 
 def aes128_encrypt_planes(S: torch.Tensor, rk_masks: np.ndarray) -> torch.Tensor:
-    """AES-128 on bitsliced state int32[128, B] with constant round-key masks
-    (uint32[11, 128], as :func:`round_key_masks` gives them)."""
-    rk = to_carrier(rk_masks, S.device)
-    S = S ^ rk[0][:, None]
+    """AES-128 on bitsliced state int32[128, B] with constant round-key masks:
+    uint32[11, 128] (as :func:`round_key_masks` gives them), or
+    uint32[11, 128, n] for n key schedules, schedule j on the j-th of n
+    equal column blocks of S."""
+    rk = to_carrier(rk_masks, S.device).reshape(11, 128, -1, 1)
+    n = rk.shape[2]
+
+    def add_round_key(S, rnd):
+        return (S.reshape(128, n, -1) ^ rk[rnd]).reshape(128, -1)
+
+    S = add_round_key(S, 0)
     for rnd in range(1, 10):
         S = _sub_bytes(S)
         S = _shift_rows(S)
         S = _mix_columns(S)
-        S = S ^ rk[rnd][:, None]
+        S = add_round_key(S, rnd)
     S = _sub_bytes(S)
     S = _shift_rows(S)
-    return S ^ rk[10][:, None]
+    return add_round_key(S, 10)
 
 
 def aes128_mmo_planes(S: torch.Tensor, rk_masks: np.ndarray) -> torch.Tensor:
@@ -134,11 +141,18 @@ def aes128_mmo_planes(S: torch.Tensor, rk_masks: np.ndarray) -> torch.Tensor:
     return aes128_encrypt_planes(S, rk_masks) ^ S
 
 
+# Both fixed keys' schedules side by side, uint32[11, 128, 2] (L, R).
+_RK_MASKS_LR = np.stack([RK_MASKS_L, RK_MASKS_R], axis=-1)
+
+
 def prg_planes(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """DPF length-doubling PRG: both fixed-key MMO expansions of the same
     seeds (reference dpf/dpf.go:59-69, minus the t-bit handling which the
-    evaluator owns).  Returns (left, right) children as planes."""
-    return aes128_mmo_planes(S, RK_MASKS_L), aes128_mmo_planes(S, RK_MASKS_R)
+    evaluator owns), run as one cipher over the seeds twice, side by side.
+    Returns (left, right) children as planes."""
+    B = S.shape[1]
+    LR = aes128_mmo_planes(torch.cat([S, S], dim=1), _RK_MASKS_LR)
+    return LR[:, :B], LR[:, B:]
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 ``nvcc`` compiles each source of :data:`LIBRARIES` (``csrc/aes_mmo.cu``,
-``csrc/chacha_expand.cu``; plain C interfaces, no PyTorch headers) into a
+``csrc/aes_walk.cu``, ``csrc/chacha_expand.cu``, ``csrc/chacha_walk.cu``;
+plain C interfaces, no PyTorch headers) into a
 shared library of its own under ``build/`` beside the package, named by a
 hash of its source, headers and flags, so an unchanged tree reuses its
 build.  :func:`build_all` runs the nvcc processes side by side.
@@ -27,8 +28,10 @@ CSRC = Path(__file__).parent / "csrc"
 # Library name -> (its source, the headers it includes).  Each source builds
 # into a library of its own, all of them in parallel (one nvcc each).
 LIBRARIES = {
-    "aes_mmo": (CSRC / "aes_mmo.cu", (CSRC / "sbox_bp113.cuh",)),
-    "chacha_expand": (CSRC / "chacha_expand.cu", ()),
+    "aes_mmo": (CSRC / "aes_mmo.cu", (CSRC / "aes_bm.cuh", CSRC / "sbox_bp113.cuh")),
+    "aes_walk": (CSRC / "aes_walk.cu", (CSRC / "aes_bm.cuh", CSRC / "sbox_bp113.cuh")),
+    "chacha_expand": (CSRC / "chacha_expand.cu", (CSRC / "chacha12.cuh",)),
+    "chacha_walk": (CSRC / "chacha_walk.cu", (CSRC / "chacha12.cuh",)),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dpf_tpu_torch"
 NVCC_FLAGS = (
@@ -56,6 +59,16 @@ _SIGNATURES = {
             [_vp, _ll, _ll, _ll, _ll, _int, _vp, _ll, _vp, _ll, _vp, _ll,
              _ll, _vp], _int),
         "dpf_chacha_error_string": ([_int], ctypes.c_char_p),
+    },
+    "aes_walk": {
+        # seeds, t, scw, tl, tr, fcw, pw, sel, out, K, qp, nu, stream
+        "dpf_walk_bm": ([_vp] * 9 + [_ll, _ll, _int, _vp], _int),
+        "dpf_walk_bm_error_string": ([_int], ctypes.c_char_p),
+    },
+    "chacha_walk": {
+        # meta, seeds, scw, tcw, fcw, xs_lo, xs_hi, out, Q, K, log_n, nu, stream
+        "dpf_chacha_walk": ([_vp] * 8 + [_ll, _ll, _int, _int, _vp], _int),
+        "dpf_chacha_walk_error_string": ([_int], ctypes.c_char_p),
     },
 }
 

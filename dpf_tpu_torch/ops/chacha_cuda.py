@@ -1,8 +1,7 @@
 """The fast profile's expansion kernels for Hopper, and their routing plan.
 
-The port's counterpart of the expansion half of
-``dpf_tpu/ops/chacha_pallas.py``.  Two wrappers, each beside its plain
-PyTorch version:
+The port's counterpart of ``dpf_tpu/ops/chacha_pallas.py``.  Three
+wrappers, each beside its plain PyTorch version:
 
 - :func:`expand_tail` (``csrc/chacha_expand.cu::expand_tail_kernel``,
   replacing ``_expand_kernel``): the last L GGM levels plus the 512-bit leaf
@@ -10,7 +9,11 @@ PyTorch version:
   ``[K, W << L, 16]`` out in ascending leaf order;
 - :func:`fused_levels` (``fused_levels_kernel``, replacing
   ``_fused_levels_kernel``): G GGM levels, state ``[5, K, W]`` in,
-  ``[5, K, W << G]`` out in ascending node order.
+  ``[5, K, W << G]`` out in ascending node order;
+- :func:`walk` (``csrc/chacha_walk.cu::walk_kernel``, replacing
+  ``_walk_kernel`` with ``dcf=False``): the pointwise root-to-leaf walk of
+  every (query, key) pair, the key-minor operands of :func:`walk_operands`
+  and ``xs_lo[Q, K]`` in, ``[Q, K]`` bits out.
 
 State rows 0..3 are the four seed words, row 4 the control bit (0/1); the
 CWs are the compact per-key ``scw[K, L, 4]``, ``tcw[K, L, 2]`` and
@@ -31,9 +34,13 @@ parts (failure latches, env knobs, the 128-lane CW padding) are not ported.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..core import bitpack
+from ..core import chacha_np as cc
 from . import build
+from .aes_bitslice import from_carrier, to_carrier
 
 _EKT = 8  # key tile of the Pallas kernel: the plan's key padding quantum
 _EWT = 128  # node tile of the Pallas kernel at its entry
@@ -227,3 +234,159 @@ def expand_tail(state: torch.Tensor, scw: torch.Tensor, tcw: torch.Tensor,
 
 
 expand_tail.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Pointwise walk
+# ---------------------------------------------------------------------------
+
+
+def _walk_common_operands(kb, key_level, lowmask, dev):
+    """(meta, seeds_t, scw_t, tcw_t) in the kernel's key-minor layout, int32
+    on ``dev``: meta [3, K] (ts, key_level, lowmask), seeds_t [4, K],
+    scw_t [4 nu, K], tcw_t [2 nu, K] (``chacha_pallas._walk_common_operands``;
+    with nu = 0 the CW rows are empty)."""
+    k, nu = kb.k, kb.nu
+    meta = np.stack([kb.ts.astype(np.uint32), key_level, lowmask])
+    scw_t = np.moveaxis(kb.scw.reshape(k, nu, 4), 0, 2).reshape(4 * nu, k)
+    tcw_t = np.moveaxis(kb.tcw.astype(np.uint32).reshape(k, nu, 2), 0, 2).reshape(2 * nu, k)
+    return tuple(to_carrier(a, dev) for a in (meta, kb.seeds.T, scw_t, tcw_t))
+
+
+def walk_operands(kb, groups: int = 0, device="cpu"):
+    """(meta, seeds_t, scw_t, tcw_t, fcw_t) for the walk on ``device``,
+    memoized per key batch, ``groups`` and device (key material is immutable
+    once evaluated).  ``groups`` > 0: a level-grouped FSS batch, whose
+    key_level and lowmask come from ``chacha_np.grouped_masks``."""
+    dev = torch.device(device)
+    cache = kb._walk_ops
+    if (groups, dev) in cache:
+        return cache[(groups, dev)]
+    k = kb.k
+    if groups:
+        key_level, lowmask = cc.grouped_masks(k, k // (groups * kb.log_n), kb.log_n)
+    else:
+        key_level = np.full(k, kb.log_n, np.uint32)
+        lowmask = np.full(k, cc.LEAF_BITS - 1, np.uint32)
+    ops = _walk_common_operands(kb, key_level, lowmask, dev) + (
+        to_carrier(kb.fcw.T, dev),
+    )
+    cache[(groups, dev)] = ops
+    return ops
+
+
+def walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
+               nu: int) -> torch.Tensor:
+    """Plain version of :func:`walk`: the Pallas kernel's steps on whole
+    ``[Q, K]`` word tensors, the ChaCha12 core of ``models/dpf_chacha.py``."""
+    from ..models import dpf_chacha as m
+
+    Q, K = xs_lo.shape
+    ts, key_level, lowmask = meta
+    S = [seeds_t[w][None].expand(Q, K).contiguous() for w in range(4)]
+    T = ts[None].expand(Q, K)
+    for i in range(nu):
+        L, R = m._prg_expand(S)
+        tl, tr = L[0] & 1, R[0] & 1
+        L[0] = L[0] & ~1
+        R[0] = R[0] & ~1
+        msk = -T
+        L = [L[w] ^ (scw_t[4 * i + w][None] & msk) for w in range(4)]
+        R = [R[w] ^ (scw_t[4 * i + w][None] & msk) for w in range(4)]
+        tl = tl ^ (tcw_t[2 * i][None] & T)
+        tr = tr ^ (tcw_t[2 * i + 1][None] & T)
+        b = log_n - 1 - i  # the descent bit, MSB first
+        src, sh = (xs_hi, b - 32) if b >= 32 else (xs_lo, b)
+        pbit = ((src >> sh) & 1) & (key_level >= i).to(torch.int32)[None]
+        bm = -pbit
+        S = [(R[w] & bm) | (L[w] & ~bm) for w in range(4)]
+        T = (tr & bm) | (tl & ~bm)
+    out = m._convert(S)
+    msk = -T
+    low = xs_lo & (cc.LEAF_BITS - 1) & lowmask[None]
+    words = torch.stack([out[j] ^ (fcw_t[j][None] & msk) for j in range(16)], dim=2)
+    sel = words.gather(2, ((low >> 5) & 15).long()[:, :, None])[:, :, 0]
+    return (sel >> (low & 31)) & 1
+
+
+def walk(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
+         nu: int) -> torch.Tensor:
+    """The pointwise walk: operands of :func:`walk_operands`, query words
+    ``xs_lo`` int32[Q, K] and ``xs_hi`` ([Q, K]; read only when log_n > 32)
+    -> int32[Q, K] bits 0/1.  Contract of ``dpf_tpu.ops.chacha_pallas.
+    _walk_raw`` with ``dcf=False``, for any Q >= 1 and K >= 1 (no query tile,
+    no 128-key quantum)."""
+    if xs_lo.device.type == "cpu":
+        return walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n, nu)
+    if xs_lo.device.type != "cuda":
+        raise ValueError(f"expected a CUDA or CPU tensor, got {xs_lo.device}")
+    dev = xs_lo.device
+    if xs_lo.dim() != 2 or min(xs_lo.shape) < 1:
+        raise ValueError(f"xs_lo: expected [Q >= 1, K >= 1], got {list(xs_lo.shape)}")
+    Q, K = xs_lo.shape
+    if not 1 <= log_n <= 64 or nu < 0:
+        raise ValueError(f"walk: log_n = {log_n}, nu = {nu} out of range")
+    if -(-Q * K // 128) > 0x7FFFFFFF:
+        raise ValueError(f"walk: Q * K = {Q * K} lanes; the grid takes at most "
+                         f"{0x7FFFFFFF * 128}")
+    operands = [("meta", meta, (3, K)), ("seeds_t", seeds_t, (4, K)),
+                ("scw_t", scw_t, (4 * nu, K)), ("tcw_t", tcw_t, (2 * nu, K)),
+                ("fcw_t", fcw_t, (16, K)), ("xs_lo", xs_lo, (Q, K))]
+    if log_n > 32:
+        operands.append(("xs_hi", xs_hi, (Q, K)))
+    for name, x, shape in operands:  # each contiguous
+        _check(name, x, shape, (K, 1), dev)
+    out = torch.empty((Q, K), dtype=torch.int32, device=dev)
+    hi = xs_hi if log_n > 32 else xs_lo  # never read when log_n <= 32
+    lib = build.load("chacha_walk")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.dpf_chacha_walk(
+            *(x.data_ptr() for x in (meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, hi, out)),
+            Q, K, log_n, nu, stream,
+        )
+    if rc:
+        msg = lib.dpf_chacha_walk_error_string(rc).decode()
+        raise RuntimeError(f"walk_kernel launch failed: CUDA error {rc} ({msg})")
+    walk.launches += 1
+    return out
+
+
+walk.launches = 0
+
+
+def walk_args(kb, xs: np.ndarray, groups: int = 0, device="cpu") -> tuple:
+    """The arguments of :func:`walk` for ``xs`` on ``device``: the key
+    operands, the queries split into int32 halves and transposed to
+    ``[Q, K]`` (repeated across the level blocks of a grouped batch, whose
+    ``xs`` is the raw gate queries ``[G, Q]``), log_n and nu."""
+    from ..models.dpf_chacha import _split_queries
+
+    dev = torch.device(device)
+    xs_hi, xs_lo = _split_queries(xs, kb.log_n, dev)  # [Q, G or K]
+    rep = kb.k // xs.shape[0]
+    if rep > 1:  # level-grouped: the queries repeat across level blocks
+        xs_lo = xs_lo.repeat(1, rep)
+        xs_hi = xs_hi.repeat(1, rep) if xs_hi is not None else None
+    return (*walk_operands(kb, groups, dev), xs_lo, xs_hi, kb.log_n, kb.nu)
+
+
+def eval_points_walk(kb, xs: np.ndarray, groups: int = 0, reduce: bool = False,
+                     packed: bool = False, device="cpu", walk_fn=walk) -> np.ndarray:
+    """Pointwise evaluation through one ``walk_fn`` launch
+    (``chacha_pallas.eval_points_walk``).  ``xs`` is uint64[K, Q], or the raw
+    gate queries uint64[G, Q] of a level-grouped batch (``groups`` > 0),
+    checked by the caller.  -> uint8[K, Q]; with ``reduce`` the level and
+    group blocks XOR-fold on the device -> uint8[G, Q]; ``packed`` returns
+    the rows as uint32[., ceil(Q/32)] words packed on the device, tail bits
+    zero."""
+    if reduce and not groups:
+        raise ValueError("reduce requires a level-grouped batch")
+    k, q = kb.k, xs.shape[1]
+    bits = walk_fn(*walk_args(kb, xs, groups, device))
+    if reduce:  # XOR of 0/1 bits over the level and group blocks: the sum's parity
+        g = k // (groups * kb.log_n)
+        bits = bits.view(q, k // g, g).sum(1, dtype=torch.int32) & 1
+    if packed:
+        return bitpack.mask_tail(from_carrier(bitpack.pack_bits_qmajor_torch(bits)), q)
+    return bits.T.to(torch.uint8).contiguous().cpu().numpy()

@@ -1,7 +1,9 @@
 """How many instructions the kernels' work takes.
 
 The fast profile's count (ChaCha12, :func:`chacha_instructions`) is at the
-end of this module.  The rest counts the compat profile's AES-MMO:
+end of this module, and each profile's pointwise walk is counted from its
+ciphers (:func:`walk_lop3_per_column`, :func:`walk_chacha_ops`).  The rest
+counts the compat profile's AES-MMO:
 
 ``chip_smoke.py`` divides this count by the card's logic-instruction issue
 rate to get each kernel's operation bound.  It is counted, not estimated by
@@ -218,6 +220,15 @@ def lop3_per_column(n_keys: int) -> int:
     return lop3_cover(dag, outs)
 
 
+def walk_lop3_per_column(nu: int) -> int:
+    """``LOP3`` instructions of the compat walk's ciphers on one column word
+    (32 queries of one key, csrc/aes_walk.cu): a PRG (both MMOs) per level
+    and the leaf MMO.  The CW, path-select and bit-select work around them
+    (about 4 instructions per plane and level) is not counted, so the bound
+    stays a least time."""
+    return nu * lop3_per_column(2) + lop3_per_column(1)
+
+
 # ---------------------------------------------------------------------------
 # ChaCha12 (the fast profile's kernels, csrc/chacha_expand.cu)
 # ---------------------------------------------------------------------------
@@ -268,3 +279,14 @@ def chacha_instructions(kind: str) -> int:
     """All instructions of :func:`chacha_ops`: 595 per expansion, 601 per
     leaf convert."""
     return sum(chacha_ops(kind).values())
+
+
+def walk_chacha_ops(nu: int) -> Counter:
+    """Instructions by kind of the fast walk's ciphers for one (query, key)
+    lane (csrc/chacha_walk.cu): an expansion block (8 output words) per level
+    and the leaf block (16).  The CW and path-select work around them is not
+    counted: the walk needs only the chosen child's words."""
+    ops = Counter()
+    for kind, n in chacha_core_ops(8).items():
+        ops[kind] = nu * n
+    return ops + chacha_core_ops(16)

@@ -46,6 +46,7 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
         "import dpf_tpu_torch.ops.gen_sbox, dpf_tpu_torch.ops.op_count, dpf_tpu_torch.models.dpf\n"
         "import dpf_tpu_torch.fast, dpf_tpu_torch.models.dpf_chacha, dpf_tpu_torch.ops.chacha_cuda\n"
         "import dpf_tpu_torch.core.chacha_np, dpf_tpu_torch.core.keys_chacha\n"
+        "import dpf_tpu_torch.core.bitpack\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -311,3 +312,65 @@ def test_chip_smoke_without_cuda_fails_and_prints_no_result():
     )
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_port_source_scan_covers_the_point_path():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "dpf_tpu_torch/core/bitpack.py" in names
+    assert {"aes_walk.cu", "chacha_walk.cu", "aes_bm.cuh", "chacha12.cuh"} <= {
+        p.name for p in build.CSRC.iterdir()
+    }
+    assert {"aes_walk", "chacha_walk"} <= set(build.LIBRARIES)
+
+
+def test_eval_points_batch_without_cuda_raises_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    xs = np.array([[1, 5], [9, 200]], np.uint64)
+    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0))
+    fa, _ = fast.gen_batch([5, 9], 8, np.random.default_rng(0))
+    for fn, kb in ((port.eval_points_batch, ka), (fast.eval_points_batch, fa)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            fn(kb, xs)
+        assert fn(kb, xs, device="cpu").shape == (2, 2)
+    for model, kb in ((port_dpf, ka), (port_dc, fa)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            model.eval_points_level_grouped(kb, xs[:1, :1] // 8, 1, levels=(0, 3))
+
+
+def _walk_bm_operands(device, K=2, qp=3, nu=2):
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)  # noqa: E731
+    return (z(128, K), z(K), z(nu, 128, K), z(nu, K), z(nu, K), z(128, K), z(nu, K, qp),
+            z(128, K, qp), nu)
+
+
+def _walk_operands(device, Q=3, K=2, nu=2):
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)  # noqa: E731
+    return (z(3, K), z(4, K), z(4 * nu, K), z(2 * nu, K), z(16, K), z(Q, K), z(Q, K), 20, nu)
+
+
+@pytest.mark.parametrize("wrapper", ["eval_points_walk_planes", "walk"])
+def test_walk_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
+    fn, operands = {
+        "eval_points_walk_planes": (aes_cuda.eval_points_walk_planes, _walk_bm_operands),
+        "walk": (chacha_cuda.walk, _walk_operands),
+    }[wrapper]
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(*operands("meta"))
+    out = fn(*operands("cpu"))  # the plain version: no launch
+    assert out.shape == ((2, 3) if wrapper == "eval_points_walk_planes" else (3, 2))
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("nu", [0, 1, 23])
+def test_walk_counts_are_their_ciphers(nu):
+    # The compat walk: a PRG column per level and a leaf MMO column; the fast
+    # walk: an expansion block per level and a leaf block, 380 ALU-pipe
+    # instructions each (the expansion's 394 less its 14 CW LOP3).
+    assert op_count.walk_lop3_per_column(nu) == nu * 32094 + 16236
+    ops = op_count.walk_chacha_ops(nu)
+    assert ops == Counter({k: nu * n for k, n in op_count.chacha_core_ops(8).items()}) + \
+        op_count.chacha_core_ops(16)
+    expand = op_count.chacha_ops("expand")
+    assert expand["LOP3"] + expand["SHF"] - op_count.LEVEL_STEP_EXTRA["LOP3"] == 380
+    assert ops["LOP3"] + ops["SHF"] == 380 * (nu + 1)

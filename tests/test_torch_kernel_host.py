@@ -9,7 +9,12 @@ them, bit for bit, against the plain PyTorch versions on random
 int32[128, 64] planes.  ``csrc/chacha_expand.cu`` is built the same way: its
 per-thread work (ChaCha12 core, level step, depth-first subtree walk, leaf
 convert, ascending store) runs for every thread index of a launch and is held
-against the plain versions of ``ops/chacha_cuda.py``.  It runs without a GPU.
+against the plain versions of ``ops/chacha_cuda.py``.  The pointwise walks
+(``csrc/aes_walk.cu``, ``csrc/chacha_walk.cu``) build into the same two
+libraries: every column or lane of a launch runs in turn and is held against
+``eval_points_walk_planes_plain`` and ``walk_plain`` (walk order, plane
+orders, the 64-bit index split, the level-grouping masks).  It runs without a
+GPU.
 """
 
 import ctypes
@@ -34,6 +39,19 @@ SHIM = """\
 
 HOST_ENTRY = """\
 #include "aes_mmo.cu"
+#include "aes_walk.cu"
+
+// Every column (key k, query word j) of one walk launch, in turn.
+extern "C" void host_walk_bm(const uint32_t* seeds, const uint32_t* t,
+                             const uint32_t* scw, const uint32_t* tl,
+                             const uint32_t* tr, const uint32_t* fcw,
+                             const uint32_t* pw, const uint32_t* sel, uint32_t* out,
+                             long long K, long long qp, int nu) {
+  const WalkArgs a{seeds, t, scw, tl, tr, fcw, pw, sel, out, K, qp, nu};
+  uint32_t st[128], nx[128];
+  for (long long k = 0; k < K; ++k)
+    for (long long j = 0; j < qp; ++j) walk_column<1>(a, k, j, st, nx);
+}
 
 extern "C" void host_prg(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
   for (long long j = 0; j < B; ++j) {
@@ -50,6 +68,17 @@ extern "C" void host_mmo_canon(const uint32_t* S, uint32_t* O, long long B) {
 
 CHACHA_HOST_ENTRY = """\
 #include "chacha_expand.cu"
+#include "chacha_walk.cu"
+
+// Every lane (query i / K, key i % K) of one walk launch, in turn.
+extern "C" void host_chacha_walk(const uint32_t* meta, const uint32_t* seeds,
+                                 const uint32_t* scw, const uint32_t* tcw,
+                                 const uint32_t* fcw, const uint32_t* xs_lo,
+                                 const uint32_t* xs_hi, uint32_t* out, long long Q,
+                                 long long K, int log_n, int nu) {
+  const ChachaWalkArgs a{meta, seeds, scw, tcw, fcw, xs_lo, xs_hi, out, Q, K, log_n, nu};
+  for (long long i = 0; i < Q * K; ++i) walk_lane(a, i);
+}
 
 // Every thread index of one launch, in turn, as the kernels run them.
 extern "C" void host_expand(int leaf, const uint32_t* st, long long st_row,
@@ -91,6 +120,8 @@ def host_lib(tmp_path_factory):
     lib.host_prg.restype = None
     lib.host_mmo_canon.argtypes = [vp, vp, ctypes.c_longlong]
     lib.host_mmo_canon.restype = None
+    lib.host_walk_bm.argtypes = [vp] * 9 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+    lib.host_walk_bm.restype = None
     return lib
 
 
@@ -124,6 +155,8 @@ def chacha_lib(tmp_path_factory):
     lib.host_expand.argtypes = [ctypes.c_int, vp, ll, ll, ll, ll, ctypes.c_int,
                                 vp, ll, vp, ll, vp, ll, vp, ll, ll]
     lib.host_expand.restype = None
+    lib.host_chacha_walk.argtypes = [vp] * 8 + [ll, ll, ctypes.c_int, ctypes.c_int]
+    lib.host_chacha_walk.restype = None
     return lib
 
 
@@ -185,3 +218,49 @@ def test_chacha_tail_strided_views_match_plain(chacha_lib):
     )
     np.testing.assert_array_equal(out[:, a << levels : b << levels], from_carrier(want))
     assert not out[:, : a << levels].any() and not out[:, b << levels :].any()
+
+
+@pytest.mark.parametrize("K,qp,nu", [(1, 1, 0), (3, 2, 1), (2, 3, 3)])
+def test_compat_walk_column_matches_plain(host_lib, K, qp, nu):
+    # Random words everywhere (not only lane masks and one-hot selects): the
+    # kernel and the plain version compute the same function of any words.
+    rng = np.random.default_rng(100 + 10 * K + nu)
+    words = lambda *shape: rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)  # noqa: E731
+    ops = [words(128, K), words(K), words(nu, 128, K), words(nu, K), words(nu, K),
+           words(128, K), words(nu, K, qp), words(128, K, qp)]
+    out = np.zeros((K, qp), np.uint32)
+    host_lib.host_walk_bm(*(_p(a) for a in ops), _p(out), K, qp, nu)
+    want = aes_cuda.eval_points_walk_planes_plain(*(to_carrier(a) for a in ops), nu)
+    np.testing.assert_array_equal(out, from_carrier(want))
+
+
+def _walk_operands(rng, Q, K, log_n, grouped):
+    """Random walk operands: meta (t 0/1, key_level, lowmask), seeds, CWs
+    and 64-bit query halves."""
+    nu = max(log_n - 9, 0)
+    words = lambda *shape: rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)  # noqa: E731
+    if grouped:
+        key_level = rng.integers(0, log_n, size=K, dtype=np.uint32)
+        lowmask = words(K) & np.uint32(511)
+    else:
+        key_level = np.full(K, log_n, np.uint32)
+        lowmask = np.full(K, 511, np.uint32)
+    meta = np.stack([rng.integers(0, 2, size=K, dtype=np.uint32), key_level, lowmask])
+    seeds, scw, fcw = words(4, K), words(4 * nu, K), words(16, K)
+    seeds[0] &= ~np.uint32(1)
+    scw[0::4] &= ~np.uint32(1)
+    tcw = rng.integers(0, 2, size=(2 * nu, K), dtype=np.uint32)
+    xs = rng.integers(0, 1 << log_n, size=(Q, K), dtype=np.uint64)
+    lo = (xs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (xs >> np.uint64(32)).astype(np.uint32)
+    return [meta, seeds, scw, tcw, fcw, lo, hi], nu
+
+
+@pytest.mark.parametrize("log_n,Q,K,grouped", [(9, 3, 2, False), (14, 5, 3, False),
+                                               (34, 4, 3, False), (16, 3, 5, True)])
+def test_chacha_walk_lane_matches_plain(chacha_lib, log_n, Q, K, grouped):
+    ops, nu = _walk_operands(np.random.default_rng(log_n + Q), Q, K, log_n, grouped)
+    out = np.zeros((Q, K), np.uint32)
+    chacha_lib.host_chacha_walk(*(_p(a) for a in ops), _p(out), Q, K, log_n, nu)
+    want = chacha_cuda.walk_plain(*(to_carrier(a) for a in ops), log_n, nu)
+    np.testing.assert_array_equal(out, from_carrier(want))
