@@ -11,8 +11,13 @@ profile, BASELINE.json's config, then the ChaCha fast profile,
 ``dpf_tpu_torch.fast``), then pointwise evaluation of both profiles
 (``eval_points_batch`` at BASELINE.json's config 3, n=30 with 256 keys at
 4096 queries each, and the level-grouped walk at config 5's shape, n=32 with
-32 levels of 128 gates), with launch counters zeroed just before each path and
-read just after.  It checks each kernel path against the plain path and the
+32 levels of 128 gates), then config 5 itself: the one-key-per-gate DCF
+(``fast.dcf_eval_lt_points`` over 4096 gates and
+``fast.dcf_eval_interval_points`` over 2048, 1024 queries a gate) and the
+FSS comparison and interval gates of both profiles (``dpf_tpu_torch.fss``,
+4096 level keys a launch), and ``fss.ge_full_from_dpf`` of both profiles at
+n=20, with launch counters zeroed just before each path and read just
+after.  It checks each kernel path against the plain path and the
 chunked split against the unchunked one (and the fast profile's deep-tree and
 whole-tree routes), and times the paths and each kernel with CUDA events
 (a kernel's ``ms`` in the kernels line: its runs queued back to back behind
@@ -98,6 +103,14 @@ POINT_LOG_N, POINT_K, POINT_Q = 30, 256, 4096
 # Config 5's shape: n=32 FSS gates, 4096 keys = 32 levels x 128 gates, groups=1,
 # 1024 queries per gate.
 GATE_LOG_N, GATE_G, GATE_Q = 32, 128, 1024
+# BASELINE config 5 for the DCF: one key a gate, 4096 gates (comparison) or
+# 2048 (interval: one fused 4096-key launch); the FSS gates' intervals: 64
+# gates (2 x 32 levels x 64 = 4096 keys).
+DCF_G, DCF_IV_G, FSS_IV_G = 4096, 2048, 64
+# walk_dcf_kernel's checks against its plain version: every (log_n, K, Q).
+DCF_CHECK_LOG_N, DCF_CHECK_K, DCF_CHECK_Q = (5, 13, 34), (1, 129), (1, 33)
+# ge_full_from_dpf: checked at every point of 64 keys, timed at config 2's batch.
+GE_LOG_N, GE_CHECK_K, GE_K = 20, 64, 1024
 # The walks' kernel checks: every (log_n, K, Q) of these (compat), every
 # (log_n, K) at Q = 100 (fast).
 COMPAT_WALK_LOG_N, COMPAT_WALK_K, COMPAT_WALK_Q = (6, 13, 33), (5, 8, 256), (13, 100, 4096)
@@ -254,6 +267,7 @@ def _wrappers() -> dict:
         "expand_tail_kernel": chacha_cuda.expand_tail,
         "walk_bm_kernel": aes_cuda.eval_points_walk_planes,
         "walk_kernel": chacha_cuda.walk,
+        "walk_dcf_kernel": chacha_cuda.walk_dcf,
     }
 
 
@@ -337,9 +351,8 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
     out_b = fast.eval_full_batch(kb)
     launches = read_launches()
     log(f"[fast main] n={LOG_N} K={K}: launches over 2 evaluations {launches}")
-    if launches != {"prg_bm_kernel": 0, "mmo_bm_canon_kernel": 0,
-                    "fused_levels_kernel": 4, "expand_tail_kernel": 2,
-                    "walk_bm_kernel": 0, "walk_kernel": 0}:
+    if launches != {**{n: 0 for n in launches}, "fused_levels_kernel": 4,
+                    "expand_tail_kernel": 2}:
         raise AssertionError("expected 2 fused-levels + 1 tail launch per evaluation")
     if out_a.shape != (K, 1 << (LOG_N - 3)) or out_a.dtype != np.uint8:
         raise AssertionError(f"fast output shape {out_a.shape} {out_a.dtype}")
@@ -663,13 +676,14 @@ def point_grouped(name: str, model, gen, spec_point, dev) -> None:
         f"full rows, 32 (key, query) pairs equal the spec at their masked queries")
 
 
-def walk_bound_ms(kname: str, nu: int, inputs, sm_clocks_per_s: float):
-    """The walk's least time at the headline -> (bound ms, "operations" or
-    "bytes", text): its ciphers' instructions (ops/op_count.py) over the
-    issue rate, against each input read once and the output written once."""
+def walk_bound_ms(kname: str, nu: int, inputs, sm_clocks_per_s: float,
+                  q_total: int = POINT_K * POINT_Q):
+    """A walk's least time over ``q_total`` (query, key) lanes -> (bound ms,
+    "operations" or "bytes", text): its ciphers' instructions
+    (ops/op_count.py) over the issue rate, against each input read once and
+    the output written once."""
     from dpf_tpu_torch.ops import op_count
 
-    q_total = POINT_K * POINT_Q
     if kname == "walk_bm_kernel":
         columns = q_total // 32
         lop3 = op_count.walk_lop3_per_column(nu) * columns
@@ -677,7 +691,8 @@ def walk_bound_ms(kname: str, nu: int, inputs, sm_clocks_per_s: float):
         text = f"{lop3:.4e} LOP3 ({columns} columns of {nu} PRGs + 1 MMO)"
         out_bytes = 4 * columns
     else:
-        ops = op_count.walk_chacha_ops(nu)
+        count = op_count.walk_dcf_ops if kname == "walk_dcf_kernel" else op_count.walk_chacha_ops
+        ops = count(nu)
         alu, total = (ops["LOP3"] + ops["SHF"]) * q_total, sum(ops.values()) * q_total
         ops_ms = max(alu / LOP3_PER_SM_CLOCK, total / ISSUE_PER_SM_CLOCK) / sm_clocks_per_s * 1e3
         text = (f"{alu:.4e} ALU-pipe at {LOP3_PER_SM_CLOCK}/clk/SM, {total:.4e} in all at "
@@ -689,19 +704,25 @@ def walk_bound_ms(kname: str, nu: int, inputs, sm_clocks_per_s: float):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", text
 
 
-def point_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
-    """Phases 17-21, pointwise evaluation of both profiles; returns the two
-    walk kernels' rows of the kernels line.  The traces come first: chip
-    runs that traced after the plain versions' hundreds of thousands of
-    small launches recorded few or no device events."""
-    profiles = point_profiles()
+def point_traced(dev, card: str) -> dict:
+    """Phases 17-18, pointwise evaluation of both profiles at config 3 with
+    their times and traces.  The traces of every path come before any plain
+    version runs (phases 19 on): chip runs that traced after the plain
+    versions' hundreds of thousands of small launches recorded few or no
+    device events."""
     head = {}
-    for kname, (name, entry, _, gen, spec_point, _, _) in profiles.items():
+    for kname, (name, entry, _, gen, spec_point, _, _) in point_profiles().items():
         n_launch, ka, xs, out_a = point_headline(kname, name, entry, gen, spec_point)  # 17
         kern, plain, device_fn, device_work, inputs, nu = point_walk(kname, ka, xs, dev)
         point_times(card, kname, name, entry, ka, xs, device_fn, device_work)  # 18
         head[kname] = (n_launch, ka, xs, out_a, kern, plain, inputs, nu)
+    return head
 
+
+def point_checked(dev, card: str, sm_clocks_per_s: float, head: dict) -> list[dict]:
+    """Phases 19-21, the walks against their plain versions and the kernels'
+    times; returns the two walk kernels' rows of the kernels line."""
+    profiles = point_profiles()
     err = walk_kernel_checks(dev)  # 19
     rows = []
     for kname, (name, _, model, gen, spec_point, source, replaces) in profiles.items():
@@ -728,6 +749,308 @@ def point_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
             "library_ms": None,
         })
     return rows
+
+
+# ---------------------------------------------------------------------------
+# DCF and the FSS gates at BASELINE config 5 (phases 22-27)
+# ---------------------------------------------------------------------------
+
+
+def gate_rate(name: str, card: str, what: str, lanes: int, ms: float) -> None:
+    log(f"[{name} time] {card}: {what}: {ms:.4f} ms = {lanes / ms / 1e3:.2f} M gate "
+        f"evaluations/s")
+
+
+def interval_bounds(rng, g: int):
+    """(lo, hi) of g interval gates on the n=32 domain: random ranges, the
+    first with the wrap edge hi = 2^n - 1, the second one point."""
+    ends = np.sort(rng.integers(0, 1 << GATE_LOG_N, size=(2, g), dtype=np.uint64), axis=0)
+    lo, hi = ends
+    hi[0] = (1 << GATE_LOG_N) - 1
+    hi[1] = lo[1]
+    return lo, hi
+
+
+def interval_queries(rng, lo, hi) -> np.ndarray:
+    """Random queries of each interval gate, with its bounds and their
+    neighbours among them."""
+    xs = rng.integers(0, 1 << GATE_LOG_N, size=(len(lo), GATE_Q), dtype=np.uint64)
+    top = np.uint64((1 << GATE_LOG_N) - 1)
+    xs[:, 0], xs[:, 1] = lo, hi
+    xs[:, 2] = np.maximum(lo, np.uint64(1)) - np.uint64(1)
+    xs[:, 3] = np.minimum(hi, top - np.uint64(1)) + np.uint64(1)
+    return xs
+
+
+def counted(what: str, fn, expect: dict[str, int]):
+    """Run ``fn`` with every launch counter zeroed just before and read just
+    after -> (its result, the launches); raise unless they are ``expect``
+    (kernel name -> launches) and no other kernel ran."""
+    zero_launches()
+    out = fn()
+    launches = read_launches()
+    log(f"[launches] {what}: {launches}")
+    if launches != {**{n: 0 for n in launches}, **expect}:
+        raise AssertionError(f"{what}: expected the launches {expect}")
+    return out, launches
+
+
+def gate_traced(dev, card: str, sm_clocks_per_s: float) -> dict:
+    """Phases 22-24: DCF (comparison and interval) and both profiles' FSS
+    gates at config 5 through the entry points, each path with its launch
+    counters zeroed just before and read just after, checked exactly, timed
+    and traced (before any plain version runs)."""
+    from dpf_tpu_torch import fast, fss
+    from dpf_tpu_torch.core import bitpack
+    from dpf_tpu_torch.models import dcf as mdcf
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.ops import aes_cuda, chacha_cuda
+
+    n, q = GATE_LOG_N, GATE_Q
+    head = {}
+
+    # 22. DCF comparison at config 5: 4096 gates, one key each.
+    rng = np.random.default_rng(50)
+    alphas = rng.integers(0, 1 << n, size=DCF_G, dtype=np.uint64)
+    alphas[0], alphas[1] = 0, (1 << n) - 1
+    xs = rng.integers(0, 1 << n, size=(DCF_G, q), dtype=np.uint64)
+    xs[:, 0] = alphas
+    xs[:, 1] = np.maximum(alphas, np.uint64(1)) - np.uint64(1)
+    def lt_path():
+        keys = fast.dcf_gen_lt_batch(alphas, n, rng)
+        return (*keys, *(fast.dcf_eval_lt_points(k, xs) for k in keys))
+
+    (ka, kb, sa, sb), launches = counted(f"dcf n={n}, {DCF_G} gates", lt_path,
+                                         {"walk_dcf_kernel": 2})  # one a party
+    if sa.shape != (DCF_G, q) or sa.dtype != np.uint8:
+        raise AssertionError(f"dcf output {sa.shape} {sa.dtype}")
+    if not np.array_equal(sa ^ sb, xs < alphas[:, None]):
+        raise AssertionError("dcf: shares do not reconstruct xs < alpha")
+    if not np.array_equal(fast.dcf_eval_lt_points(ka, xs, packed=True), pack_bits(sa)):
+        raise AssertionError("dcf: packed != pack_bits(unpacked)")
+    rows = np.sort(rng.choice(DCF_G, 8, replace=False))
+    cols = np.sort(rng.choice(q, 64, replace=False))
+    sub = mdcf.DcfKeyBatch(n, ka.seeds[rows], ka.ts[rows], ka.scw[rows], ka.tcw[rows],
+                           ka.vcw[rows], ka.fvcw[rows])
+    if not np.array_equal(mdcf.eval_points_np(sub, xs[rows][:, cols]), sa[rows][:, cols]):
+        raise AssertionError("dcf: shares != eval_points_np on 8 gates x 64 queries")
+    log(f"[dcf] n={n}, {DCF_G} gates x {q} queries: both parties' shares XOR to "
+        f"xs < alpha at every point; packed == pack_bits(bits); 8 gates x 64 queries "
+        f"equal the numpy eval_points_np")
+
+    # 23. DCF interval at config 5: 2048 gates, one fused 4096-key launch a party.
+    lo, hi = interval_bounds(rng, DCF_IV_G)
+    xs_iv = interval_queries(rng, lo, hi)
+    def interval_path():
+        keys = fast.dcf_gen_interval_batch(lo, hi, n, rng)
+        return (*keys, *(fast.dcf_eval_interval_points(k, xs_iv) for k in keys))
+
+    (ia, ib, ra, rb), _ = counted(f"dcf interval, {DCF_IV_G} gates", interval_path,
+                                  {"walk_dcf_kernel": 2})
+    inside = (lo[:, None] <= xs_iv) & (xs_iv <= hi[:, None])
+    if not np.array_equal(ra ^ rb, inside):
+        raise AssertionError("dcf interval: shares do not reconstruct lo <= x <= hi")
+    if not np.array_equal(fast.dcf_eval_interval_points(ia, xs_iv, packed=True),
+                          pack_bits(ra)):
+        raise AssertionError("dcf interval: packed != pack_bits(unpacked)")
+    log(f"[dcf] interval, {DCF_IV_G} gates (wrap edge, one point) x {q} queries: shares "
+        f"XOR to lo <= x <= hi at every point; packed == pack_bits(bits)")
+
+    # Times and traces of the DCF path.
+    lanes = DCF_G * q
+    args = chacha_cuda.dcf_walk_args(ka, xs, dev)
+
+    def dcf_device():
+        return chacha_cuda.walk_dcf(*args).T.to(torch.uint8).contiguous()
+
+    gate_rate("dcf", card, "dcf_eval_lt_points end to end (queries to the card, walk, "
+              "D2H)", lanes, host_ms(lambda: fast.dcf_eval_lt_points(ka, xs), 1, 5))
+    gate_rate("dcf", card, "dcf_eval_lt_points packed end to end", lanes,
+              host_ms(lambda: fast.dcf_eval_lt_points(ka, xs, packed=True), 1, 5))
+    gate_rate("dcf", card, "dcf_eval_interval_points end to end", DCF_IV_G * q,
+              host_ms(lambda: fast.dcf_eval_interval_points(ia, xs_iv), 1, 5))
+    gate_rate("dcf", card, "device work, output left on the card (walk and uint8 "
+              "transpose, CUDA events)", lanes, cuda_ms(dcf_device))
+    log(f"[dcf profile] {card}: device work host launch time (returns, not "
+        f"synchronized): {enqueue_ms(dcf_device):.3f} ms")
+    log_breakdown(card, "dcf device work", dcf_device, "walk_dcf_kernel")
+    log_breakdown(card, "dcf_eval_lt_points", lambda: fast.dcf_eval_lt_points(ka, xs),
+                  "walk_dcf_kernel")
+    kern = lambda: chacha_cuda.walk_dcf(*args)  # noqa: E731
+    k_ms, e_ms = kernel_ms(kern), cuda_ms(kern)
+    inputs = list(args[:7])  # xs_hi is not read at n = 32
+    bound_ms, bound_by, text = walk_bound_ms("walk_dcf_kernel", ka.nu, inputs,
+                                             sm_clocks_per_s, lanes)
+    log(f"[dcf time] {card}: walk_dcf_kernel at n={n}, K={DCF_G}, Q={q}, nu={ka.nu}: "
+        f"kernel {k_ms:.4f} ms (queued; {e_ms:.4f} ms one call at a time), bound "
+        f"{bound_ms:.4f} ms ({text}), {100 * bound_ms / k_ms:.1f} % of the bound")
+    head["dcf"] = dict(ka=ka, xs=xs, sa=sa, ia=ia, xs_iv=xs_iv, args=args,
+                       n_launch=launches["walk_dcf_kernel"],
+                       k_ms=k_ms, e_ms=e_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    # 24. The FSS gates of both profiles at config 5: 128 gates x 32 levels
+    #     (4096 keys) and 64 interval gates (2 x 32 x 64 = 4096 keys).
+    for profile, kname in (("compat", "walk_bm_kernel"), ("fast", "walk_kernel")):
+        name = f"fss {profile}"
+        rng = np.random.default_rng(51)
+        alphas = rng.integers(0, 1 << n, size=GATE_G, dtype=np.uint64)
+        alphas[0], alphas[1] = 0, (1 << n) - 1
+        xs = rng.integers(0, 1 << n, size=(GATE_G, q), dtype=np.uint64)
+        xs[:, 0] = alphas
+        xs[:, 1] = np.maximum(alphas, np.uint64(1)) - np.uint64(1)
+        def fss_lt_path():
+            keys = fss.gen_lt_batch(alphas, n, rng, profile)
+            return (*keys, *(fss.eval_lt_points(k, xs) for k in keys))
+
+        (ca, cb, sa, sb), _ = counted(f"{name} n={n}, {GATE_G} gates", fss_lt_path,
+                                      {kname: 2})
+        if sa.shape != (GATE_G, q) or not np.array_equal(sa ^ sb, xs < alphas[:, None]):
+            raise AssertionError(f"{name}: shares do not reconstruct xs < alpha")
+        if not np.array_equal(fss.eval_lt_points(ca, xs, packed=True), pack_bits(sa)):
+            raise AssertionError(f"{name}: packed != pack_bits(unpacked)")
+        lo, hi = interval_bounds(rng, FSS_IV_G)
+        xs_iv = interval_queries(rng, lo, hi)
+        def fss_interval_path():
+            keys = fss.gen_interval_batch(lo, hi, n, rng, profile)
+            return (*keys, *(fss.eval_interval_points(k, xs_iv) for k in keys))
+
+        (ia, ib, ra, rb), _ = counted(f"{name} interval, {FSS_IV_G} gates",
+                                      fss_interval_path, {kname: 2})
+        if not np.array_equal(ra ^ rb, (lo[:, None] <= xs_iv) & (xs_iv <= hi[:, None])):
+            raise AssertionError(f"{name} interval: shares do not reconstruct lo <= x <= hi")
+        log(f"[{name}] n={n}: {GATE_G} comparison gates ({n * GATE_G} keys) and "
+            f"{FSS_IV_G} interval gates ({2 * n * FSS_IV_G} keys) x {q} queries: shares "
+            f"reconstruct exactly at every point; packed == pack_bits(bits)")
+
+        lanes = n * GATE_G * q
+        levels, nu = ca.levels, ca.levels.nu
+        if profile == "compat":
+            masks = mdpf._point_masks(levels, dev)
+            split = mdpf._split_words(mdpf._pad_queries(xs), n, dev)
+            wargs = mdpf._grouped_walk_body(nu, n, 1, GATE_G, *masks, *split, False,
+                                            lambda *a: a)
+            kern = lambda: aes_cuda.eval_points_walk_planes(*wargs)  # noqa: E731
+            inputs = wargs[:-1]
+
+            def device_fn():
+                return mdpf._grouped_walk_body(nu, n, 1, GATE_G, *masks, *split, True,
+                                               aes_cuda.eval_points_walk_planes)
+        else:
+            wargs = chacha_cuda.walk_args(levels, xs, 1, dev)
+            kern = lambda: chacha_cuda.walk(*wargs)  # noqa: E731
+            inputs = wargs[:6]
+
+            def device_fn():
+                bits = chacha_cuda.walk(*wargs).view(q, n, GATE_G).sum(1, dtype=torch.int32)
+                return bitpack.pack_bits_qmajor_torch(bits & 1)
+        gate_rate(name, card, "eval_lt_points end to end (queries to the card, walk, "
+                  "fold, D2H)", lanes, host_ms(lambda: fss.eval_lt_points(ca, xs), 1, 5))
+        gate_rate(name, card, "eval_lt_points packed end to end", lanes,
+                  host_ms(lambda: fss.eval_lt_points(ca, xs, packed=True), 1, 5))
+        gate_rate(name, card, "eval_interval_points end to end", 2 * n * FSS_IV_G * q,
+                  host_ms(lambda: fss.eval_interval_points(ia, xs_iv), 1, 5))
+        gate_rate(name, card, "device work, packed gate shares left on the card (CUDA "
+                  "events)", lanes, cuda_ms(device_fn))
+        log(f"[{name} profile] {card}: device work host launch time (returns, not "
+            f"synchronized): {enqueue_ms(device_fn):.3f} ms")
+        log_breakdown(card, f"{name} device work", device_fn, kname)
+        log_breakdown(card, f"{name} eval_lt_points", lambda: fss.eval_lt_points(ca, xs),
+                      kname)
+        k_ms = kernel_ms(kern)
+        bound_ms, _, text = walk_bound_ms(kname, nu, inputs, sm_clocks_per_s, lanes)
+        log(f"[{name} time] {card}: {kname} at {n * GATE_G} keys x {q} queries, nu={nu}: "
+            f"kernel {k_ms:.4f} ms (queued; {cuda_ms(kern):.4f} ms one call at a time), "
+            f"bound {bound_ms:.4f} ms ({text}), {100 * bound_ms / k_ms:.1f} % of the bound")
+    return head
+
+
+def gate_checked(dev, card: str, sm_clocks_per_s: float, head: dict) -> list[dict]:
+    """Phases 25-27: walk_dcf_kernel against walk_dcf_plain on the card, the
+    plain path and time at config 5, and ge_full_from_dpf of both profiles;
+    returns walk_dcf_kernel's row of the kernels line."""
+    import itertools
+
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast, fss
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+    from dpf_tpu_torch.ops import chacha_cuda
+
+    # 25. The kernel against its plain version, on real keys.
+    err = 0
+    for log_n, k, q in itertools.product(DCF_CHECK_LOG_N, DCF_CHECK_K, DCF_CHECK_Q):
+        _, ka, _, xs = point_batch(fast.dcf_gen_lt_batch, log_n, k, q, seed=log_n * k + q)
+        args = chacha_cuda.dcf_walk_args(ka, xs, dev)
+        err = max(err, check_equal("walk_dcf_kernel", chacha_cuda.walk_dcf(*args),
+                                   chacha_cuda.walk_dcf_plain(*args),
+                                   f"log_n={log_n} K={k} Q={q}"))
+    h = head["dcf"]
+    upper, xs_iv = h["ia"][0], h["xs_iv"]
+    both = upper._both[2]
+    args = chacha_cuda.dcf_walk_args(both, np.concatenate([xs_iv, xs_iv]), dev)
+    err = max(err, check_equal("walk_dcf_kernel", chacha_cuda.walk_dcf(*args),
+                               chacha_cuda.walk_dcf_plain(*args),
+                               f"the fused interval batch ({both.k} keys)"))
+    log(f"[dcf kernel] walk_dcf_kernel == plain at every log_n in {DCF_CHECK_LOG_N}, K in "
+        f"{DCF_CHECK_K}, Q in {DCF_CHECK_Q}, and on the fused {both.k}-key interval batch "
+        f"at n={GATE_LOG_N}, Q={GATE_Q}")
+
+    # 26. The plain path at config 5, and the plain version's time.
+    if not np.array_equal(chacha_cuda.eval_points_walk_dcf(
+            h["ka"], h["xs"], device=dev, walk_fn=chacha_cuda.walk_dcf_plain), h["sa"]):
+        raise AssertionError("dcf: kernel path != plain path")
+    log(f"[dcf] kernel path == plain path at n={GATE_LOG_N}, K={DCF_G}, Q={GATE_Q}")
+    p_ms = cuda_ms(lambda: chacha_cuda.walk_dcf_plain(*h["args"]), warmup=1, reps=3)
+    log(f"[dcf time] {card}: walk_dcf_plain at n={GATE_LOG_N}, K={DCF_G}, Q={GATE_Q}: "
+        f"{p_ms:.3f} ms")
+    row = {
+        "name": "walk_dcf_kernel", "route": "cuda", "source": FAST_WALK_SOURCE,
+        "replaces": "dpf_tpu/ops/chacha_pallas.py:127", "launches": h["n_launch"],
+        "max_abs_err": err, "ms": h["k_ms"], "event_ms": h["e_ms"], "plain_ms": p_ms,
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"], "library_ms": None,
+    }
+
+    # 27. ge_full_from_dpf, both profiles, at n=20: every point of 64 keys,
+    #     with the launches counted, then the times at config 2's batch.
+    #     Per party: compat nu = 13 PRG levels and one leaf convert; fast
+    #     two fused-levels groups (5 + 2 levels) and one tail, as at phase 11.
+    n = GE_LOG_N
+    for profile, gen, dk_cls, full, expect in (
+        ("compat", P.gen_batch, mdpf.DeviceKeys, mdpf.eval_full_device,
+         {"prg_bm_kernel": 2 * (n - 7), "mmo_bm_canon_kernel": 2}),
+        ("fast", fast.gen_batch, mdc.DeviceKeysFast, mdc.eval_full_device,
+         {"fused_levels_kernel": 4, "expand_tail_kernel": 2}),
+    ):
+        rng = np.random.default_rng(27)
+        alphas = rng.integers(0, 1 << n, size=GE_CHECK_K, dtype=np.uint64)
+        alphas[0], alphas[1] = 0, (1 << n) - 1
+        ka, kb = gen(alphas, n, rng)
+        (ta, tb), _ = counted(f"ge_full {profile} n={n}, K={GE_CHECK_K}",
+                              lambda: (fss.ge_full_from_dpf(ka), fss.ge_full_from_dpf(kb)),
+                              expect)
+        if ta.shape != (GE_CHECK_K, 1 << (n - 3)):
+            raise AssertionError(f"ge_full {profile}: shape {ta.shape}")
+        rec = np.unpackbits(ta ^ tb, axis=1, bitorder="little")
+        if not np.array_equal(rec, np.arange(1 << n)[None] >= alphas[:, None]):
+            raise AssertionError(f"ge_full {profile}: shares do not reconstruct x >= alpha")
+        log(f"[ge_full {profile}] n={n}, K={GE_CHECK_K}: both parties' tables XOR to "
+            f"x >= alpha at every point of the domain")
+        del rec, ta, tb
+        kk, _ = gen(rng.integers(0, 1 << n, size=GE_K, dtype=np.uint64), n, rng)
+        dk = dk_cls(kk, dev)
+
+        def device_fn():
+            return fss._prefix_xor_words(full(dk)[:GE_K].reshape(GE_K, -1))
+
+        leaves = GE_K << n
+        dev_ms = cuda_ms(device_fn, warmup=1, reps=5)
+        e2e_ms = host_ms(lambda: fss.ge_full_from_dpf(kk), warmup=1, reps=3)
+        log(f"[ge_full {profile} time] {card}: n={n} K={GE_K}: device work (eval_full_device "
+            f"+ prefix XOR, table left on the card, CUDA events) {dev_ms:.4f} ms = "
+            f"{leaves / dev_ms / 1e6:.2f} Gpoints/s; ge_full_from_dpf end to end (D2H "
+            f"included) {e2e_ms:.3f} ms = {leaves / e2e_ms / 1e6:.2f} Gpoints/s")
+        del dk
+    return [row]
 
 
 def main() -> int:
@@ -812,9 +1135,8 @@ def main() -> int:
     launches = read_launches()
     nu = LOG_N - 7
     log(f"[main] n={LOG_N} K={K}: launches over 2 evaluations {launches}")
-    if launches != {"prg_bm_kernel": 2 * nu, "mmo_bm_canon_kernel": 2,
-                    "fused_levels_kernel": 0, "expand_tail_kernel": 0,
-                    "walk_bm_kernel": 0, "walk_kernel": 0}:
+    if launches != {**{n: 0 for n in launches}, "prg_bm_kernel": 2 * nu,
+                    "mmo_bm_canon_kernel": 2}:
         raise AssertionError(f"expected {nu} PRG + 1 leaf launch per evaluation")
     if out_a.shape != (K, 1 << (LOG_N - 3)) or out_a.dtype != np.uint8:
         raise AssertionError(f"output shape {out_a.shape} {out_a.dtype}")
@@ -888,7 +1210,10 @@ def main() -> int:
         log_breakdown(card, entry, fn, "prg_bm_kernel")
 
     rows_out += fast_phases(dev, card, n_sm * clock_hz)
-    rows_out += point_phases(dev, card, n_sm * clock_hz)
+    point_head = point_traced(dev, card)
+    gate_head = gate_traced(dev, card, n_sm * clock_hz)
+    rows_out += point_checked(dev, card, n_sm * clock_hz, point_head)
+    rows_out += gate_checked(dev, card, n_sm * clock_hz, gate_head)
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     log(f"[card] {card}")

@@ -23,7 +23,15 @@ Batch API:
     bits     = dpf_tpu_torch.eval_points_batch(kba, xs)  # xs uint64[K, Q] -> uint8[K, Q]
     words    = dpf_tpu_torch.eval_points_batch(kba, xs, packed=True)  # uint32[K, ceil(Q/32)]
 
-The level-grouped FSS form is ``models.dpf.eval_points_level_grouped``.
+FSS comparison and interval gates over level-grouped DPFs of either
+profile (``dpf_tpu_torch.fss``, ``models/fss.py``):
+
+    ca, cb = fss.gen_lt_batch(alphas, log_n)          # 1{x < alpha} shares
+    ia, ib = fss.gen_interval_batch(lo, hi, log_n)    # 1{lo <= x <= hi}
+    shares = fss.eval_lt_points(ca, xs)               # the card
+    table  = fss.ge_full_from_dpf(kba)                # 1{x >= alpha}, whole domain
+
+One-key-per-gate comparison (DCF) is in :mod:`dpf_tpu_torch.fast`.
 
 Device evaluation runs on the card (``device=None`` means ``"cuda"``) and
 raises without one, unless the caller passes ``device="cpu"``.
@@ -48,8 +56,17 @@ __all__ = [
     "eval_full_batch",
     "eval_points_batch",
     "key_len",
+    "fss",
     "fast",
 ]
+
+
+def __getattr__(name):
+    if name == "fss":
+        import importlib
+
+        return importlib.import_module(".models.fss", __name__)
+    raise AttributeError(f"module 'dpf_tpu_torch' has no attribute {name!r}")
 
 
 def Gen(alpha: int, log_n: int, rng=None) -> tuple[bytes, bytes]:
@@ -58,16 +75,24 @@ def Gen(alpha: int, log_n: int, rng=None) -> tuple[bytes, bytes]:
     return spec.gen(alpha, log_n, rng)
 
 
-def Eval(key: bytes, x: int, log_n: int) -> int:
+def Eval(key: bytes, x: int, log_n: int, backend: str = "auto", device=None) -> int:
     """Evaluate one share at a single point -> bit (reference
-    dpf/dpf.go:171), on the host: one point does not amortize a launch."""
-    return spec.eval_point(key, x, log_n)
+    dpf/dpf.go:171).  ``backend`` "auto" and "cpu" run on the host (one
+    point does not amortize a launch); any other ("jax", the reference's
+    accelerated route) sends the point to the walk on ``device``."""
+    if backend in ("auto", "cpu"):
+        return spec.eval_point(key, x, log_n)
+    kb = KeyBatch.from_bytes([key], log_n)
+    return int(eval_points_batch(kb, np.array([[x]], dtype=np.uint64), device=device)[0, 0])
 
 
-def EvalFull(key: bytes, log_n: int, device=None) -> bytes:
+def EvalFull(key: bytes, log_n: int, backend: str = "auto", device=None) -> bytes:
     """Full-domain evaluation of one key -> 2^(log_n-3) bit-packed bytes
     (16 bytes when log_n < 7), byte-identical to the reference EvalFull
-    (dpf/dpf.go:243-262)."""
+    (dpf/dpf.go:243-262).  ``backend="cpu"`` runs the host spec; otherwise
+    the evaluation runs on ``device``."""
+    if backend == "cpu":
+        return spec.eval_full(key, log_n)
     kb = KeyBatch.from_bytes([key], log_n)
     return eval_full_batch(kb, device=device)[0].tobytes()
 

@@ -1,13 +1,13 @@
 """Pure-NumPy AES-128 and AES-128-MMO — the port's executable crypto spec.
 
 The port's own copy of ``dpf_tpu/core/aes_np.py`` (the port imports nothing
-of ``dpf_tpu``); ``tests/test_torch_aes.py`` holds the two equal.  It is the
+of ``dpf_tpu``); ``tests/port/test_torch_aes.py`` holds the two equal.  It is the
 golden model for the port's CUDA kernels and their plain PyTorch versions.
 Nothing here is performance-critical; it exists to be *obviously correct*:
 
 - The S-box is derived from first principles (GF(2^8) inversion + affine map),
   not hardcoded, and is verified against FIPS-197 test vectors in
-  ``tests/test_torch_aes.py``.
+  ``tests/port/test_torch_aes.py``.
 - ``aes128_mmo`` implements the Matyas-Meyer-Oseas one-way compression
   ``E_k(x) ^ x`` used as the DPF length-doubling PRG, mirroring the
   reference's AES-NI kernel (reference: dpf/aes_amd64.s:51-82, the

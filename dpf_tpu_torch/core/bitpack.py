@@ -27,6 +27,14 @@ def packed_words(q: int) -> int:
     return -(-int(q) // 32)
 
 
+def empty_rows(rows: int, q: int, packed: bool) -> np.ndarray:
+    """The result of an evaluation with no keys or no queries: uint8[rows,
+    q] bits, or uint32[rows, ceil(q/32)] words when ``packed``."""
+    if packed:
+        return np.zeros((rows, packed_words(q)), np.uint32)
+    return np.zeros((rows, int(q)), np.uint8)
+
+
 def mask_tail(words: np.ndarray, q: int) -> np.ndarray:
     """Zero bits >= q in the last word (copy only when masking applies)."""
     q = int(q)

@@ -1,7 +1,7 @@
 """NumPy executable spec of the ChaCha-based DPF profile ("fast profile").
 
 The port's copy of ``dpf_tpu/core/chacha_np.py`` (the port imports nothing of
-``dpf_tpu``; ``tests/test_torch_chacha.py`` holds the two equal).
+``dpf_tpu``; ``tests/port/test_torch_chacha.py`` holds the two equal).
 
 The reference's DPF is pinned to fixed-key AES-128-MMO because its target
 hardware has AES-NI (dpf/aes_amd64.s:51-82).  The BGI construction only

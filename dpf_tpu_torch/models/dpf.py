@@ -362,10 +362,10 @@ def eval_points(kb: KeyBatch, xs: np.ndarray, packed: bool = False, device=None,
         raise ValueError("xs first axis must match key batch")
     if (xs >> np.uint64(kb.log_n)).any():
         raise ValueError("dpf: query index out of domain")
-    if kb.k < 1 or xs.shape[1] < 1:
-        raise ValueError(f"dpf: the walk needs K >= 1 and Q >= 1, got {xs.shape}")
     walk = _walk_fn(impl)
     dev = _resolve_device(device)
+    if not xs.size:  # no keys or no queries: nothing to launch
+        return bitpack.empty_rows(kb.k, xs.shape[1], packed)
     xs_hi, xs_lo = _split_words(_pad_queries(xs), kb.log_n, dev)
     words = _eval_points_walk_body(
         kb.nu, kb.log_n, *_point_masks(kb, dev), xs_hi, xs_lo, walk
@@ -456,16 +456,17 @@ def eval_points_level_grouped(
         out = eval_points(kb, _masked_level_queries(xs, n, lv, groups),
                           packed=packed, device=device, impl=impl)
         if reduce:
-            out = np.bitwise_xor.reduce(out.reshape(groups * len(lv), G, -1), axis=0)
+            out = np.bitwise_xor.reduce(
+                out.reshape(groups * len(lv), G, out.shape[1]), axis=0)
         return out
     if groups < 1 or kb.k != groups * n * G:
         raise ValueError("dpf: key count != groups * log_n * G")
     if (xs >> np.uint64(n)).any():
         raise ValueError("dpf: query index out of domain")
-    if G < 1 or Q < 1:
-        raise ValueError(f"dpf: the walk needs G >= 1 and Q >= 1, got {xs.shape}")
     walk = _walk_fn(impl)
     dev = _resolve_device(device)
+    if not xs.size:  # no gates or no queries: nothing to launch
+        return bitpack.empty_rows(G if reduce else kb.k, Q, packed)
     xs_hi, xs_lo = _split_words(_pad_queries(xs), n, dev)
     words = _grouped_walk_body(kb.nu, n, groups, G, *_point_masks(kb, dev), xs_hi,
                                xs_lo, reduce, walk)

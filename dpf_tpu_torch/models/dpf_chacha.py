@@ -396,7 +396,8 @@ def eval_points_level_grouped(
         out = eval_points(kb, _masked_level_queries(xs, kb.log_n, lv, groups),
                           packed=packed, device=device, impl=impl)
         if reduce:
-            out = np.bitwise_xor.reduce(out.reshape(groups * len(lv), G, -1), axis=0)
+            out = np.bitwise_xor.reduce(
+                out.reshape(groups * len(lv), G, out.shape[1]), axis=0)
         return out
     if groups < 1 or kb.k != groups * kb.log_n * G:
         raise ValueError("dpf-fast: key count != groups * log_n * G")

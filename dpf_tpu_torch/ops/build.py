@@ -68,6 +68,9 @@ _SIGNATURES = {
     "chacha_walk": {
         # meta, seeds, scw, tcw, fcw, xs_lo, xs_hi, out, Q, K, log_n, nu, stream
         "dpf_chacha_walk": ([_vp] * 8 + [_ll, _ll, _int, _int, _vp], _int),
+        # meta, seeds, scw, tcw, vcw, fcw, xs_lo, xs_hi, out, Q, K, log_n, nu,
+        # stream
+        "dpf_chacha_walk_dcf": ([_vp] * 9 + [_ll, _ll, _int, _int, _vp], _int),
         "dpf_chacha_walk_error_string": ([_int], ctypes.c_char_p),
     },
 }

@@ -1,6 +1,6 @@
-"""The fast profile's expansion kernels for Hopper, and their routing plan.
+"""The fast profile's kernels for Hopper, and their routing plan.
 
-The port's counterpart of ``dpf_tpu/ops/chacha_pallas.py``.  Three
+The port's counterpart of ``dpf_tpu/ops/chacha_pallas.py``.  Four
 wrappers, each beside its plain PyTorch version:
 
 - :func:`expand_tail` (``csrc/chacha_expand.cu::expand_tail_kernel``,
@@ -13,7 +13,10 @@ wrappers, each beside its plain PyTorch version:
 - :func:`walk` (``csrc/chacha_walk.cu::walk_kernel``, replacing
   ``_walk_kernel`` with ``dcf=False``): the pointwise root-to-leaf walk of
   every (query, key) pair, the key-minor operands of :func:`walk_operands`
-  and ``xs_lo[Q, K]`` in, ``[Q, K]`` bits out.
+  and ``xs_lo[Q, K]`` in, ``[Q, K]`` bits out;
+- :func:`walk_dcf` (``walk_dcf_kernel``, replacing ``_walk_kernel`` with
+  ``dcf=True``): the same walk with the DCF value accumulator, the
+  operands of :func:`dcf_walk_operands` in, ``[Q, K]`` share bits out.
 
 State rows 0..3 are the four seed words, row 4 the control bit (0/1); the
 CWs are the compact per-key ``scw[K, L, 4]``, ``tcw[K, L, 2]`` and
@@ -275,18 +278,21 @@ def walk_operands(kb, groups: int = 0, device="cpu"):
     return ops
 
 
-def walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
-               nu: int) -> torch.Tensor:
-    """Plain version of :func:`walk`: the Pallas kernel's steps on whole
-    ``[Q, K]`` word tensors, the ChaCha12 core of ``models/dpf_chacha.py``."""
+def _walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
+                nu: int, vcw_t=None) -> torch.Tensor:
+    """The Pallas kernel's steps on whole ``[Q, K]`` word tensors, the
+    ChaCha12 core of ``models/dpf_chacha.py``; with ``vcw_t`` the DCF
+    accumulator (``_walk_kernel(dcf=True)``)."""
     from ..models import dpf_chacha as m
 
     Q, K = xs_lo.shape
     ts, key_level, lowmask = meta
     S = [seeds_t[w][None].expand(Q, K).contiguous() for w in range(4)]
     T = ts[None].expand(Q, K)
+    acc = torch.zeros((Q, K), dtype=torch.int32, device=xs_lo.device)
     for i in range(nu):
-        L, R = m._prg_expand(S)
+        out = m._chacha_core(S, m._DSX, 8 if vcw_t is None else 9)
+        L, R = out[0:4], out[4:8]
         tl, tr = L[0] & 1, R[0] & 1
         L[0] = L[0] & ~1
         R[0] = R[0] & ~1
@@ -298,6 +304,8 @@ def walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
         b = log_n - 1 - i  # the descent bit, MSB first
         src, sh = (xs_hi, b - 32) if b >= 32 else (xs_lo, b)
         pbit = ((src >> sh) & 1) & (key_level >= i).to(torch.int32)[None]
+        if vcw_t is not None:  # the value word, under the parent's t
+            acc = acc ^ ((out[8] ^ (vcw_t[i][None] & T)) & 1 & (1 - pbit))
         bm = -pbit
         S = [(R[w] & bm) | (L[w] & ~bm) for w in range(4)]
         T = (tr & bm) | (tl & ~bm)
@@ -306,18 +314,28 @@ def walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
     low = xs_lo & (cc.LEAF_BITS - 1) & lowmask[None]
     words = torch.stack([out[j] ^ (fcw_t[j][None] & msk) for j in range(16)], dim=2)
     sel = words.gather(2, ((low >> 5) & 15).long()[:, :, None])[:, :, 0]
-    return (sel >> (low & 31)) & 1
+    return acc ^ ((sel >> (low & 31)) & 1)
 
 
-def walk(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
-         nu: int) -> torch.Tensor:
-    """The pointwise walk: operands of :func:`walk_operands`, query words
-    ``xs_lo`` int32[Q, K] and ``xs_hi`` ([Q, K]; read only when log_n > 32)
-    -> int32[Q, K] bits 0/1.  Contract of ``dpf_tpu.ops.chacha_pallas.
-    _walk_raw`` with ``dcf=False``, for any Q >= 1 and K >= 1 (no query tile,
-    no 128-key quantum)."""
-    if xs_lo.device.type == "cpu":
-        return walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n, nu)
+def walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
+               nu: int) -> torch.Tensor:
+    """Plain version of :func:`walk`: the Pallas kernel's steps on whole
+    ``[Q, K]`` word tensors, the ChaCha12 core of ``models/dpf_chacha.py``."""
+    return _walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n, nu)
+
+
+def walk_dcf_plain(meta, seeds_t, scw_t, tcw_t, vcw_t, fcw_t, xs_lo, xs_hi,
+                   log_n: int, nu: int) -> torch.Tensor:
+    """Plain version of :func:`walk_dcf`: the steps of :func:`walk_plain`
+    with 9-word expansions and the DCF accumulator."""
+    return _walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n, nu,
+                       vcw_t)
+
+
+def _walk_launch(kernel: str, meta, seeds_t, scw_t, tcw_t, vcw_t, fcw_t, xs_lo,
+                 xs_hi, log_n: int, nu: int) -> torch.Tensor:
+    """Check the walk's operands on the card and launch ``kernel``
+    (``walk_kernel``, or ``walk_dcf_kernel`` with ``vcw_t``) -> int32[Q, K]."""
     if xs_lo.device.type != "cuda":
         raise ValueError(f"expected a CUDA or CPU tensor, got {xs_lo.device}")
     dev = xs_lo.device
@@ -332,6 +350,8 @@ def walk(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
     operands = [("meta", meta, (3, K)), ("seeds_t", seeds_t, (4, K)),
                 ("scw_t", scw_t, (4 * nu, K)), ("tcw_t", tcw_t, (2 * nu, K)),
                 ("fcw_t", fcw_t, (16, K)), ("xs_lo", xs_lo, (Q, K))]
+    if vcw_t is not None:
+        operands.append(("vcw_t", vcw_t, (max(nu, 1), K)))
     if log_n > 32:
         operands.append(("xs_hi", xs_hi, (Q, K)))
     for name, x, shape in operands:  # each contiguous
@@ -339,15 +359,29 @@ def walk(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
     out = torch.empty((Q, K), dtype=torch.int32, device=dev)
     hi = xs_hi if log_n > 32 else xs_lo  # never read when log_n <= 32
     lib = build.load("chacha_walk")
+    keys = (meta, seeds_t, scw_t, tcw_t) + (() if vcw_t is None else (vcw_t,))
+    cfn = lib.dpf_chacha_walk if vcw_t is None else lib.dpf_chacha_walk_dcf
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dpf_chacha_walk(
-            *(x.data_ptr() for x in (meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, hi, out)),
-            Q, K, log_n, nu, stream,
-        )
+        rc = cfn(*(x.data_ptr() for x in keys + (fcw_t, xs_lo, hi, out)),
+                 Q, K, log_n, nu, stream)
     if rc:
         msg = lib.dpf_chacha_walk_error_string(rc).decode()
-        raise RuntimeError(f"walk_kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")
+    return out
+
+
+def walk(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
+         nu: int) -> torch.Tensor:
+    """The pointwise walk: operands of :func:`walk_operands`, query words
+    ``xs_lo`` int32[Q, K] and ``xs_hi`` ([Q, K]; read only when log_n > 32)
+    -> int32[Q, K] bits 0/1.  Contract of ``dpf_tpu.ops.chacha_pallas.
+    _walk_raw`` with ``dcf=False``, for any Q >= 1 and K >= 1 (no query tile,
+    no 128-key quantum)."""
+    if xs_lo.device.type == "cpu":
+        return walk_plain(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n, nu)
+    out = _walk_launch("walk_kernel", meta, seeds_t, scw_t, tcw_t, None, fcw_t, xs_lo,
+                       xs_hi, log_n, nu)
     walk.launches += 1
     return out
 
@@ -383,10 +417,79 @@ def eval_points_walk(kb, xs: np.ndarray, groups: int = 0, reduce: bool = False,
     if reduce and not groups:
         raise ValueError("reduce requires a level-grouped batch")
     k, q = kb.k, xs.shape[1]
+    if not xs.size:  # no keys or no queries: nothing to launch
+        return bitpack.empty_rows(xs.shape[0] if reduce else k, q, packed)
     bits = walk_fn(*walk_args(kb, xs, groups, device))
     if reduce:  # XOR of 0/1 bits over the level and group blocks: the sum's parity
         g = k // (groups * kb.log_n)
         bits = bits.view(q, k // g, g).sum(1, dtype=torch.int32) & 1
+    if packed:
+        return bitpack.mask_tail(from_carrier(bitpack.pack_bits_qmajor_torch(bits)), q)
+    return bits.T.to(torch.uint8).contiguous().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# DCF walk (models/dcf.py)
+# ---------------------------------------------------------------------------
+
+
+def walk_dcf(meta, seeds_t, scw_t, tcw_t, vcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
+             nu: int) -> torch.Tensor:
+    """The DCF comparison-share walk: operands of :func:`dcf_walk_operands`
+    (``fcw_t`` is the FVCW), query words ``xs_lo`` int32[Q, K] and ``xs_hi``
+    (read only when log_n > 32) -> int32[Q, K] share bits 0/1.  Contract of
+    ``dpf_tpu.ops.chacha_pallas._walk_call_dcf``'s ``_walk_raw(dcf=True)``,
+    for any Q >= 1 and K >= 1."""
+    if xs_lo.device.type == "cpu":
+        return walk_dcf_plain(meta, seeds_t, scw_t, tcw_t, vcw_t, fcw_t, xs_lo, xs_hi,
+                              log_n, nu)
+    out = _walk_launch("walk_dcf_kernel", meta, seeds_t, scw_t, tcw_t, vcw_t, fcw_t,
+                       xs_lo, xs_hi, log_n, nu)
+    walk_dcf.launches += 1
+    return out
+
+
+walk_dcf.launches = 0
+
+
+def dcf_walk_operands(kb, device="cpu"):
+    """(meta, seeds_t, scw_t, tcw_t, vcw_t, fvcw_t) for the DCF walk on
+    ``device``, memoized per key batch and device
+    (``chacha_pallas.dcf_walk_operands``): key_level = log_n and lowmask =
+    511 for every key (no level grouping); vcw_t [max(nu, 1), K] (zero when
+    nu = 0) and fvcw_t [16, K], key-minor."""
+    dev = torch.device(device)
+    if dev in kb._walk_ops:
+        return kb._walk_ops[dev]
+    k, nu = kb.k, kb.nu
+    common = _walk_common_operands(kb, np.full(k, kb.log_n, np.uint32),
+                                   np.full(k, cc.LEAF_BITS - 1, np.uint32), dev)
+    vcw_t = kb.vcw.astype(np.uint32).T if nu else np.zeros((1, k), np.uint32)
+    ops = common + (to_carrier(vcw_t, dev), to_carrier(kb.fvcw.T, dev))
+    kb._walk_ops[dev] = ops
+    return ops
+
+
+def dcf_walk_args(kb, xs: np.ndarray, device="cpu") -> tuple:
+    """The arguments of :func:`walk_dcf` for xs uint64[K, Q] on ``device``:
+    the key operands, the queries split into int32 halves and transposed to
+    ``[Q, K]``, log_n and nu."""
+    from ..models.dpf_chacha import _split_queries
+
+    xs_hi, xs_lo = _split_queries(xs, kb.log_n, torch.device(device))
+    return (*dcf_walk_operands(kb, device), xs_lo, xs_hi, kb.log_n, kb.nu)
+
+
+def eval_points_walk_dcf(kb, xs: np.ndarray, packed: bool = False, device="cpu",
+                         walk_fn=walk_dcf) -> np.ndarray:
+    """DCF comparison shares through one ``walk_fn`` launch
+    (``chacha_pallas.eval_points_walk_dcf``): xs uint64[K, Q], checked by
+    the caller -> uint8[K, Q]; ``packed`` returns uint32[K, ceil(Q/32)]
+    words packed on the device, tail bits zero."""
+    k, q = xs.shape
+    if not xs.size:  # no keys or no queries: nothing to launch
+        return bitpack.empty_rows(k, q, packed)
+    bits = walk_fn(*dcf_walk_args(kb, xs, device))
     if packed:
         return bitpack.mask_tail(from_carrier(bitpack.pack_bits_qmajor_torch(bits)), q)
     return bits.T.to(torch.uint8).contiguous().cpu().numpy()

@@ -9,7 +9,7 @@
 // AddRoundKey XORs the constant-bank masks RK_BM (both fixed keys).
 //
 // Compiles as host C++ too (define __host__, __device__, __constant__ empty
-// and __forceinline__ as inline): tests/test_torch_kernel_host.py.
+// and __forceinline__ as inline): tests/port/test_torch_kernel_host.py.
 #pragma once
 
 #include <cstddef>

@@ -38,7 +38,7 @@
 //
 // The per-column functions compile as host C++ too (define __host__,
 // __device__, __constant__ empty and __forceinline__ as inline), which is how
-// tests/test_torch_kernel_host.py checks this file's arithmetic without a GPU.
+// tests/port/test_torch_kernel_host.py checks this file's arithmetic without a GPU.
 
 #include <cstddef>
 #include <cstdint>

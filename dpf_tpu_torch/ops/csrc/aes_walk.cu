@@ -44,7 +44,7 @@
 //
 // The per-column walk compiles as host C++ too (define __host__, __device__,
 // __constant__ empty and __forceinline__ as inline):
-// tests/test_torch_kernel_host.py.
+// tests/port/test_torch_kernel_host.py.
 
 #include <cstddef>
 #include <cstdint>

@@ -1,10 +1,10 @@
 // ChaCha12 for the fast profile, per thread: the block function with the
 // fast-profile state layout and one GGM level step of one node.  Shared by
 // chacha_expand.cu (the expansion kernels) and chacha_walk.cu (the pointwise
-// walk).
+// walk; the DCF walk's node also takes word 8).
 //
 // Compiles as host C++ too (define __host__, __device__ empty and
-// __forceinline__ as inline): tests/test_torch_kernel_host.py.
+// __forceinline__ as inline): tests/port/test_torch_kernel_host.py.
 #pragma once
 
 #include <cstdint>
@@ -59,12 +59,14 @@ __host__ __device__ __forceinline__ void chacha12(
 
 // One GGM level of one node (models/dpf_chacha.py::_level_step_cc): expand,
 // take the children's control bits from bit 0 of word 0 and clear them, then
-// XOR the seed CW and the t CWs in under the parent's t.
-__host__ __device__ __forceinline__ void level_step(
+// XOR the seed CW and the t CWs in under the parent's t.  The expansion feeds
+// forward N_OUT >= 8 words, all left in o.
+template <int N_OUT>
+__host__ __device__ __forceinline__ void level_step_words(
     const uint32_t s[4], uint32_t t, const uint32_t* scw, uint32_t tlcw,
-    uint32_t trcw, uint32_t l[4], uint32_t& tl, uint32_t r[4], uint32_t& tr) {
-  uint32_t o[8];
-  chacha12<8>(s, CC_DS_EXPAND, o);
+    uint32_t trcw, uint32_t l[4], uint32_t& tl, uint32_t r[4], uint32_t& tr,
+    uint32_t o[N_OUT]) {
+  chacha12<N_OUT>(s, CC_DS_EXPAND, o);
   tl = o[0] & 1u;
   tr = o[4] & 1u;
   o[0] &= ~1u;
@@ -77,6 +79,24 @@ __host__ __device__ __forceinline__ void level_step(
   }
   tl ^= tlcw & t;
   tr ^= trcw & t;
+}
+
+__host__ __device__ __forceinline__ void level_step(
+    const uint32_t s[4], uint32_t t, const uint32_t* scw, uint32_t tlcw,
+    uint32_t trcw, uint32_t l[4], uint32_t& tl, uint32_t r[4], uint32_t& tr) {
+  uint32_t o[8];
+  level_step_words<8>(s, t, scw, tlcw, trcw, l, tl, r, tr, o);
+}
+
+// The DCF node (models/dcf.py): the same level step, whose expansion also
+// feeds forward word 8, the node's value word v (chacha_np.prg_expand_v).
+__host__ __device__ __forceinline__ void level_step_v(
+    const uint32_t s[4], uint32_t t, const uint32_t* scw, uint32_t tlcw,
+    uint32_t trcw, uint32_t l[4], uint32_t& tl, uint32_t r[4], uint32_t& tr,
+    uint32_t& v) {
+  uint32_t o[9];
+  level_step_words<9>(s, t, scw, tlcw, trcw, l, tl, r, tr, o);
+  v = o[8];
 }
 
 }  // namespace

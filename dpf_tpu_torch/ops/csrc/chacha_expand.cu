@@ -42,7 +42,7 @@
 //
 // The arithmetic compiles as host C++ too (define __host__, __device__ empty
 // and __forceinline__ as inline), which is how
-// tests/test_torch_kernel_host.py checks it without a GPU.
+// tests/port/test_torch_kernel_host.py checks it without a GPU.
 
 #include <cstddef>
 #include <cstdint>

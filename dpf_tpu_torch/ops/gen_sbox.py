@@ -5,7 +5,7 @@ The S-box circuit is not copied by hand: :func:`trace_circuit` runs
 ``^ & | ~`` as one C statement.  The header also carries the bit-major
 round-key masks of both fixed PRF keys (``aes_cuda._RK_BOTH_BM``) as a
 ``__constant__`` table.  The generated header is committed;
-``tests/test_torch_boundary.py`` checks that it is up to date.
+``tests/port/test_torch_boundary.py`` checks that it is up to date.
 
 Regenerate with ``python -m dpf_tpu_torch.ops.gen_sbox``.
 """

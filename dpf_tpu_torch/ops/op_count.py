@@ -2,7 +2,8 @@
 
 The fast profile's count (ChaCha12, :func:`chacha_instructions`) is at the
 end of this module, and each profile's pointwise walk is counted from its
-ciphers (:func:`walk_lop3_per_column`, :func:`walk_chacha_ops`).  The rest
+ciphers (:func:`walk_lop3_per_column`, :func:`walk_chacha_ops`,
+:func:`walk_dcf_ops`).  The rest
 counts the compat profile's AES-MMO:
 
 ``chip_smoke.py`` divides this count by the card's logic-instruction issue
@@ -288,5 +289,18 @@ def walk_chacha_ops(nu: int) -> Counter:
     counted: the walk needs only the chosen child's words."""
     ops = Counter()
     for kind, n in chacha_core_ops(8).items():
+        ops[kind] = nu * n
+    return ops + chacha_core_ops(16)
+
+
+def walk_dcf_ops(nu: int) -> Counter:
+    """Instructions by kind of the DCF walk's ciphers for one (query, key)
+    lane (csrc/chacha_walk.cu::walk_dcf_kernel): an expansion block that
+    feeds forward 9 words (the children and the value word; one IADD more
+    than the walk's 8) per level and the leaf block (16).  Counted as
+    :func:`walk_chacha_ops`: the CW, accumulator and path-select work around
+    the ciphers is not."""
+    ops = Counter()
+    for kind, n in chacha_core_ops(9).items():
         ops[kind] = nu * n
     return ops + chacha_core_ops(16)

@@ -4,7 +4,7 @@ The port's own copy of the two circuits of ``dpf_tpu/ops/sbox_circuit.py``
 (the port imports nothing of ``dpf_tpu``).  Primary circuit: Boyar-Peralta's
 113-gate / depth-16 forward S-box (J. Boyar, R. Peralta, "A depth-16 circuit
 for the AES S-box", 2011 — public-domain circuit).  Both circuits are checked
-on all 256 inputs against ``aes_np.SBOX`` in ``tests/test_torch_aes.py``.
+on all 256 inputs against ``aes_np.SBOX`` in ``tests/port/test_torch_aes.py``.
 
 A plane is any value supporting ``^``, ``&`` and ``~`` elementwise with
 two's-complement ``~``: torch ``int32`` tensors (the plain PyTorch path), or
@@ -178,7 +178,7 @@ def sbox_bp113_lowlive(x):
     inherent: 8 pinned inputs + the 9 tower coefficients (t29..t45, each
     feeding two z-products) are live across the whole output
     reconstruction, so ~17 is the floor for any schedule of this DAG.
-    Checked on all 256 inputs in tests/test_torch_aes.py.
+    Checked on all 256 inputs in tests/port/test_torch_aes.py.
     """
     (x0, x1, x2, x3, x4, x5, x6, x7) = x
 

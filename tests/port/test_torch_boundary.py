@@ -29,7 +29,7 @@ from dpf_tpu_torch.ops.aes_bitslice import from_carrier, prg_planes, to_carrier 
 from dpf_tpu_torch.ops.sbox_circuit import sbox_bp113  # noqa: E402
 from test_golden_vectors import VECTORS  # noqa: E402
 
-ROOT = Path(__file__).resolve().parent.parent
+ROOT = Path(__file__).resolve().parents[2]
 PORT_FILES = sorted((ROOT / "dpf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -46,7 +46,8 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
         "import dpf_tpu_torch.ops.gen_sbox, dpf_tpu_torch.ops.op_count, dpf_tpu_torch.models.dpf\n"
         "import dpf_tpu_torch.fast, dpf_tpu_torch.models.dpf_chacha, dpf_tpu_torch.ops.chacha_cuda\n"
         "import dpf_tpu_torch.core.chacha_np, dpf_tpu_torch.core.keys_chacha\n"
-        "import dpf_tpu_torch.core.bitpack\n"
+        "import dpf_tpu_torch.core.bitpack, dpf_tpu_torch.models.dcf, dpf_tpu_torch.models.fss\n"
+        "dpf_tpu_torch.fss\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -348,11 +349,17 @@ def _walk_operands(device, Q=3, K=2, nu=2):
     return (z(3, K), z(4, K), z(4 * nu, K), z(2 * nu, K), z(16, K), z(Q, K), z(Q, K), 20, nu)
 
 
-@pytest.mark.parametrize("wrapper", ["eval_points_walk_planes", "walk"])
+def _walk_dcf_operands(device, Q=3, K=2, nu=2):
+    ops = _walk_operands(device, Q, K, nu)
+    return ops[:4] + (torch.zeros((nu, K), dtype=torch.int32, device=device),) + ops[4:]
+
+
+@pytest.mark.parametrize("wrapper", ["eval_points_walk_planes", "walk", "walk_dcf"])
 def test_walk_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
     fn, operands = {
         "eval_points_walk_planes": (aes_cuda.eval_points_walk_planes, _walk_bm_operands),
         "walk": (chacha_cuda.walk, _walk_operands),
+        "walk_dcf": (chacha_cuda.walk_dcf, _walk_dcf_operands),
     }[wrapper]
     before = fn.launches
     with pytest.raises(ValueError):
@@ -360,6 +367,13 @@ def test_walk_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
     out = fn(*operands("cpu"))  # the plain version: no launch
     assert out.shape == ((2, 3) if wrapper == "eval_points_walk_planes" else (3, 2))
     assert fn.launches == before
+
+
+def test_port_source_scan_covers_the_gates():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"dpf_tpu_torch/models/dcf.py", "dpf_tpu_torch/models/fss.py"} <= names
+    assert "dpf_chacha_walk_dcf" in build._SIGNATURES["chacha_walk"]
+    assert "walk_dcf_kernel" in (build.CSRC / "chacha_walk.cu").read_text()
 
 
 @pytest.mark.parametrize("nu", [0, 1, 23])

@@ -13,8 +13,10 @@ against the plain versions of ``ops/chacha_cuda.py``.  The pointwise walks
 (``csrc/aes_walk.cu``, ``csrc/chacha_walk.cu``) build into the same two
 libraries: every column or lane of a launch runs in turn and is held against
 ``eval_points_walk_planes_plain`` and ``walk_plain`` (walk order, plane
-orders, the 64-bit index split, the level-grouping masks).  It runs without a
-GPU.
+orders, the 64-bit index split, the level-grouping masks); the DCF lane of
+``csrc/chacha_walk.cu`` against ``walk_dcf_plain`` on random words and against
+the numpy oracle ``models.dcf.eval_points_np`` on real keys (the value word's
+index, the parent's t).  It runs without a GPU.
 """
 
 import ctypes
@@ -27,6 +29,7 @@ import torch
 
 torch.set_num_threads(1)
 
+from dpf_tpu_torch.models import dcf  # noqa: E402
 from dpf_tpu_torch.ops import aes_cuda, build, chacha_cuda  # noqa: E402
 from dpf_tpu_torch.ops.aes_bitslice import from_carrier, to_carrier  # noqa: E402
 
@@ -77,7 +80,19 @@ extern "C" void host_chacha_walk(const uint32_t* meta, const uint32_t* seeds,
                                  const uint32_t* xs_hi, uint32_t* out, long long Q,
                                  long long K, int log_n, int nu) {
   const ChachaWalkArgs a{meta, seeds, scw, tcw, fcw, xs_lo, xs_hi, out, Q, K, log_n, nu};
-  for (long long i = 0; i < Q * K; ++i) walk_lane(a, i);
+  for (long long i = 0; i < Q * K; ++i) walk_lane<false>(a, i);
+}
+
+// Every lane of one DCF walk launch, in turn.
+extern "C" void host_chacha_walk_dcf(const uint32_t* meta, const uint32_t* seeds,
+                                     const uint32_t* scw, const uint32_t* tcw,
+                                     const uint32_t* vcw, const uint32_t* fcw,
+                                     const uint32_t* xs_lo, const uint32_t* xs_hi,
+                                     uint32_t* out, long long Q, long long K, int log_n,
+                                     int nu) {
+  const ChachaWalkArgs a{meta, seeds, scw, tcw, fcw, xs_lo, xs_hi, out, Q, K, log_n, nu,
+                         vcw};
+  for (long long i = 0; i < Q * K; ++i) walk_lane<true>(a, i);
 }
 
 // Every thread index of one launch, in turn, as the kernels run them.
@@ -157,6 +172,8 @@ def chacha_lib(tmp_path_factory):
     lib.host_expand.restype = None
     lib.host_chacha_walk.argtypes = [vp] * 8 + [ll, ll, ctypes.c_int, ctypes.c_int]
     lib.host_chacha_walk.restype = None
+    lib.host_chacha_walk_dcf.argtypes = [vp] * 9 + [ll, ll, ctypes.c_int, ctypes.c_int]
+    lib.host_chacha_walk_dcf.restype = None
     return lib
 
 
@@ -264,3 +281,36 @@ def test_chacha_walk_lane_matches_plain(chacha_lib, log_n, Q, K, grouped):
     chacha_lib.host_chacha_walk(*(_p(a) for a in ops), _p(out), Q, K, log_n, nu)
     want = chacha_cuda.walk_plain(*(to_carrier(a) for a in ops), log_n, nu)
     np.testing.assert_array_equal(out, from_carrier(want))
+
+
+@pytest.mark.parametrize("log_n,Q,K", [(5, 3, 2), (13, 5, 3), (34, 4, 3)])
+def test_chacha_walk_dcf_lane_matches_plain(chacha_lib, log_n, Q, K):
+    rng = np.random.default_rng(200 + log_n)
+    ops, nu = _walk_operands(rng, Q, K, log_n, grouped=False)
+    vcw = rng.integers(0, 2, size=(max(nu, 1), K), dtype=np.uint32)
+    ops = ops[:4] + [vcw] + ops[4:]
+    out = np.zeros((Q, K), np.uint32)
+    chacha_lib.host_chacha_walk_dcf(*(_p(a) for a in ops), _p(out), Q, K, log_n, nu)
+    want = chacha_cuda.walk_dcf_plain(*(to_carrier(a) for a in ops), log_n, nu)
+    np.testing.assert_array_equal(out, from_carrier(want))
+
+
+@pytest.mark.parametrize("log_n", [5, 13, 34])
+def test_chacha_walk_dcf_lane_matches_dcf_oracle(chacha_lib, log_n):
+    # Real DCF keys: the kernel's lanes equal eval_points_np, and both
+    # parties' lanes reconstruct xs < alpha.
+    rng = np.random.default_rng(300 + log_n)
+    K, Q = 3, 7
+    alphas = rng.integers(0, 1 << log_n, size=K, dtype=np.uint64)
+    xs = rng.integers(0, 1 << log_n, size=(K, Q), dtype=np.uint64)
+    xs[:, 0] = alphas
+    xs[:, 1] = np.maximum(alphas, np.uint64(1)) - np.uint64(1)
+    shares = []
+    for kb in dcf.gen_lt_batch(alphas, log_n, rng):
+        *ops, xs_hi, log_n_, nu = chacha_cuda.dcf_walk_args(kb, xs)
+        ops = [from_carrier(a) for a in ops + [ops[-1] if xs_hi is None else xs_hi]]
+        out = np.zeros((Q, K), np.uint32)
+        chacha_lib.host_chacha_walk_dcf(*(_p(a) for a in ops), _p(out), Q, K, log_n_, nu)
+        np.testing.assert_array_equal(out.T, dcf.eval_points_np(kb, xs))
+        shares.append(out.T)
+    np.testing.assert_array_equal(shares[0] ^ shares[1], xs < alphas[:, None])

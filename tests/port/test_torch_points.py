@@ -290,3 +290,58 @@ def test_bitpack_copy_matches_reference(Q):
                                   ref_bitpack.pack_bits(bits))
     np.testing.assert_array_equal(from_carrier(bitpack.pack_bits_qmajor_torch(t.T)),
                                   ref_bitpack.pack_bits(bits))
+
+
+# ---------------------------------------------------------------------------
+# Empty batches: no keys, or no queries (ROADMAP C.1)
+# ---------------------------------------------------------------------------
+
+EMPTY_LOG_N = 6
+
+
+def _empty_call(pkg, case, packed):
+    """One empty-batch call of ``pkg`` (dpf_tpu or the port) at log_n 6 on
+    keys from default_rng(0): alphas [3, 5] with xs uint64[2, 0]; no alphas
+    with xs uint64[0, 4]; a grouped batch of 2 gates (12 keys) with Q 0, in
+    full, reduced, and through ``levels=``."""
+    ref = pkg is dpf_tpu
+    model = ref_dpf if ref else md
+    kw = {} if ref else {"device": "cpu"}
+    if case in ("Q0", "K0"):
+        alphas = [3, 5] if case == "Q0" else np.zeros(0, np.uint64)
+        kb, _ = pkg.gen_batch(alphas, EMPTY_LOG_N, np.random.default_rng(0))
+        xs = np.zeros((2, 0) if case == "Q0" else (0, 4), np.uint64)
+        return pkg.eval_points_batch(kb, xs, packed=packed, **kw)
+    kb, _ = pkg.gen_batch(np.arange(12, dtype=np.uint64), EMPTY_LOG_N,
+                          np.random.default_rng(0))
+    levels = tuple(range(EMPTY_LOG_N)) if case.startswith("levels") else None
+    return model.eval_points_level_grouped(kb, np.zeros((2, 0), np.uint64), 1,
+                                           reduce=case.endswith("reduced"),
+                                           packed=packed, levels=levels, **kw)
+
+
+EMPTY_SHAPES = {"Q0": (2, 0), "K0": (0, 4), "grouped": (12, 0), "grouped_reduced": (2, 0),
+                "levels": (12, 0), "levels_reduced": (2, 0)}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("case", list(EMPTY_SHAPES))
+def test_empty_batches_match_reference(monkeypatch, case, packed):
+    want = _empty_call(dpf_tpu, case, packed)
+    # Nothing is walked: the entry returns before it builds an operand.
+    monkeypatch.setattr(md, "_point_masks", None)
+    got = _empty_call(port, case, packed)
+    rows, q = EMPTY_SHAPES[case]
+    assert got.shape == want.shape == ((rows, bitpack.packed_words(q)) if packed else (rows, q))
+    assert got.dtype == want.dtype == (np.uint32 if packed else np.uint8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_grouped_batch_of_no_gates_is_empty(packed):
+    # The reference's packed form raises here (a reshape of no gates); the
+    # port returns the empty rows.
+    kb, _ = port.gen_batch(np.zeros(0, np.uint64), EMPTY_LOG_N, np.random.default_rng(0))
+    got = md.eval_points_level_grouped(kb, np.zeros((0, 5), np.uint64), 1, reduce=True,
+                                       packed=packed, device="cpu")
+    assert got.shape == ((0, 1) if packed else (0, 5))

@@ -202,3 +202,98 @@ def test_fast_eval_points_rejects_bad_queries():
         fast.eval_points_batch(kb, np.zeros((3, 2), np.uint64), device="cpu")
     with pytest.raises(ValueError, match="reduce"):
         chacha_cuda.eval_points_walk(kb, np.zeros((2, 2), np.uint64), reduce=True)
+
+
+# ---------------------------------------------------------------------------
+# Empty batches (ROADMAP C.2) and the reference's signatures (C.3)
+# ---------------------------------------------------------------------------
+
+
+def _empty_call(ref, case, packed):
+    """One empty-batch call at log_n 8 on keys from default_rng(0): alphas
+    [3, 5] with xs uint64[2, 0]; no alphas with xs uint64[0, 4]; a grouped
+    batch of 2 gates (16 keys) with Q 0, in full and reduced."""
+    gen = ref_gen_batch if ref else fast.gen_batch
+    kw = {} if ref else {"device": "cpu"}
+    if case in ("Q0", "K0"):
+        alphas = np.array([3, 5] if case == "Q0" else [], np.uint64)
+        kb, _ = gen(alphas, 8, rng=np.random.default_rng(0))
+        xs = np.zeros((2, 0) if case == "Q0" else (0, 4), np.uint64)
+        return (ref_fast if ref else fast).eval_points_batch(kb, xs, packed=packed, **kw)
+    from dpf_tpu.models import dpf_chacha as ref_mdc
+
+    kb, _ = gen(np.arange(16, dtype=np.uint64), 8, rng=np.random.default_rng(0))
+    return (ref_mdc if ref else mdc).eval_points_level_grouped(
+        kb, np.zeros((2, 0), np.uint64), 1, reduce=case == "grouped_reduced",
+        packed=packed, **kw)
+
+
+EMPTY_SHAPES = {"Q0": (2, 0), "K0": (0, 4), "grouped": (16, 0), "grouped_reduced": (2, 0)}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("case", list(EMPTY_SHAPES))
+def test_empty_batches_match_reference(monkeypatch, case, packed):
+    want = _empty_call(True, case, packed)
+    # Neither the operands nor the walk are reached, on any device.
+    monkeypatch.setattr(chacha_cuda, "walk_args", None)
+    got = _empty_call(False, case, packed)
+    rows, q = EMPTY_SHAPES[case]
+    assert got.shape == want.shape == ((rows, -(-q // 32)) if packed else (rows, q))
+    assert got.dtype == want.dtype == (np.uint32 if packed else np.uint8)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_eval_points_batch_takes_backend_third():
+    # eval_points_batch(kb, xs, "cpu") is the host route, as in the reference;
+    # "cpu" is not read as ``packed``.
+    xs = np.array([[3, 4, 5], [5, 6, 7]], np.uint64)
+    ka, _ = fast.gen_batch([3, 5], 8, np.random.default_rng(0))
+    ra, _ = ref_gen_batch(np.array([3, 5], np.uint64), 8, rng=np.random.default_rng(0))
+    got = fast.eval_points_batch(ka, xs, "cpu")
+    want = ref_fast.eval_points_batch(ra, xs, "cpu")
+    assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [[1, 1, 0], [1, 1, 0]])
+    np.testing.assert_array_equal(fast.eval_points_batch(ka, xs, "cpu", True),
+                                  ref_bitpack.pack_bits(want))
+
+
+def _params(fn):
+    """(name, default) of each parameter but ``**kwargs``, in order."""
+    import inspect
+
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()
+            if p.kind is not p.VAR_KEYWORD]
+
+
+ENTRIES = ["Gen", "Eval", "EvalFull", "gen_batch", "eval_full_batch", "eval_points_batch"]
+
+
+@pytest.mark.parametrize("profile", ["compat", "fast"])
+@pytest.mark.parametrize("name", ENTRIES)
+def test_entry_signatures_follow_the_reference(profile, name):
+    import dpf_tpu
+    import dpf_tpu_torch
+
+    ref, got = ((dpf_tpu, dpf_tpu_torch) if profile == "compat" else (ref_fast, fast))
+    want = _params(getattr(ref, name))
+    have = _params(getattr(got, name))
+    assert have[: len(want)] == want
+    assert [n for n, _ in have[len(want):]] in ([], ["device"])
+
+
+@pytest.mark.parametrize("profile", ["compat", "fast"])
+def test_eval_backend_routes(profile):
+    # "auto" and "cpu" stay on the host; another backend walks on ``device``;
+    # EvalFull's "cpu" is the host spec.
+    import dpf_tpu_torch
+
+    api = dpf_tpu_torch if profile == "compat" else fast
+    ka, kb = api.Gen(77, 12, np.random.default_rng(1))
+    for x in (76, 77, 78):
+        host = api.Eval(ka, x, 12)
+        assert api.Eval(ka, x, 12, "cpu") == host
+        assert api.Eval(ka, x, 12, "jax", device="cpu") == host
+        assert host ^ api.Eval(kb, x, 12, backend="jax", device="cpu") == int(x == 77)
+    assert api.EvalFull(ka, 12, "cpu") == api.EvalFull(ka, 12, device="cpu")
