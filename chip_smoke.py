@@ -17,9 +17,16 @@ profile, BASELINE.json's config, then the ChaCha fast profile,
 FSS comparison and interval gates of both profiles (``dpf_tpu_torch.fss``,
 4096 level keys a launch), and ``fss.ge_full_from_dpf`` of both profiles at
 n=20, with launch counters zeroed just before each path and read just
-after.  It checks each kernel path against the plain path and the
-chunked split against the unchunked one (and the fast profile's deep-tree and
-whole-tree routes), and times the paths and each kernel with CUDA events
+after.  The compat EvalFull options run after the other paths' traces:
+every route of ``OPTION_ROUTES`` at config 2 traced and timed through
+``eval_full_device(dk, backend=..., fuse=...)`` (phase 29), then driven
+through ``eval_full_batch(kb, backend=..., fuse=...)``, each counted and
+held to the default route's bytes and the spec (phase 28); the kernels of
+those options (``prg_canon_kernel``, ``mmo_canon_kernel``,
+``prg_bm_il_kernel``, ``fused_levels_bm_kernel``) are held against their
+plain versions and timed last (phases 30-31).  It checks each kernel
+path against the plain path and the chunked split against the unchunked
+one (and the fast profile's deep-tree and whole-tree routes), and times the paths and each kernel with CUDA events
 (a kernel's ``ms`` in the kernels line: its runs queued back to back behind
 a sleep kernel, so the host's launch time between them does not count; its
 ``event_ms``: one call at a time, events around each).
@@ -38,6 +45,7 @@ measurements.  Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import statistics
@@ -95,6 +103,7 @@ LOP3_PER_SM_CLOCK = 64  # logic instructions per SM per clock (Hopper: 4 x 16 IN
 # per clock.
 ISSUE_PER_SM_CLOCK = 128
 SOURCE = "dpf_tpu_torch/ops/csrc/aes_mmo.cu"
+FUSED_SOURCE = "dpf_tpu_torch/ops/csrc/aes_fused.cu"
 FAST_SOURCE = "dpf_tpu_torch/ops/csrc/chacha_expand.cu"
 WALK_SOURCE = "dpf_tpu_torch/ops/csrc/aes_walk.cu"
 FAST_WALK_SOURCE = "dpf_tpu_torch/ops/csrc/chacha_walk.cu"
@@ -119,6 +128,31 @@ FAST_WALK_LOG_N, FAST_WALK_K, FAST_WALK_Q = (9, 14, 34), (9, 128, 256), 100
 # 4096}, L in {0, 1, 5} and K in {1, 9, 1024}, the headline tail (1024 keys,
 # 128 entry nodes, 4 levels) and the headline prefix groups (W 1 for 5
 # levels, W 32 for 2).
+# The compat EvalFull options at config 2 (phases 28-31): (backend, fuse,
+# max_plane_words) -> launches per evaluation.  nu = 13; fuse=g runs levels
+# 0-6 per level, then _fuse_schedule's groups of levels 7-12; the chunked
+# route (2^17 words a plane) one prefix level and two subtrees of 12.
+OPTION_ROUTES = {
+    ("pallas", None, None): {"prg_canon_kernel": 13, "mmo_canon_kernel": 1},
+    ("xla", None, None): {"prg_canon_kernel": 13, "mmo_canon_kernel": 1},
+    ("pallas_bm_il", None, None): {"prg_bm_il_kernel": 13, "mmo_bm_canon_kernel": 1},
+    ("pallas_bm", 1, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 6,
+                             "mmo_bm_canon_kernel": 1},
+    ("pallas_bm", 2, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 3,
+                             "mmo_bm_canon_kernel": 1},
+    ("pallas_bm", 3, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 2,
+                             "mmo_bm_canon_kernel": 1},
+    ("pallas_bm", 4, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 2,
+                             "mmo_bm_canon_kernel": 1},
+    ("pallas_bm_il", 2, None): {"prg_bm_il_kernel": 7, "fused_levels_bm_kernel": 3,
+                                "mmo_bm_canon_kernel": 1},
+    ("pallas", None, 1 << 17): {"prg_canon_kernel": 25, "mmo_canon_kernel": 2},
+}
+# The route whose launches and fused groups the kernels line gives for
+# fused_levels_bm_kernel; the odd shapes of its checks (Kp, W, g).
+FUSED_ROUTE = ("pallas_bm", 4, None)
+FUSED_CHECKS = ((1, 1, 1), (1, 1, 4), (3, 5, 2), (3, 5, 6))
+ODD_WIDTHS = (1, 33, 4097)
 FAST_CHECKS = (
     (1, 1, 0), (1, 1, 5), (9, 3, 1), (9, 3, 5), (1, 4096, 1), (9, 4096, 5),
     (1024, 4096, 0), (1024, 128, 1), (1024, 128, 4), (1024, 1, 5), (1024, 32, 2),
@@ -228,6 +262,60 @@ def device_breakdown(fn, expect: str, attempts: int = 3
     raise AssertionError(f"torch.profiler recorded no {expect} in {attempts} traces")
 
 
+# The pause between the runs of one traced session, and the device gap that
+# splits their events; a chip run saw a 10 ms gap inside one compat
+# eval_full_device (its host launch time is 4-11 ms).
+TRACE_PAUSE_S = 0.1
+
+
+def device_breakdowns(fns: list, expects: list[str], attempts: int = 3) -> list[tuple]:
+    """:func:`device_breakdown` of each of ``fns`` in ONE torch.profiler
+    session: each runs once, synchronized and followed by a pause of
+    ``TRACE_PAUSE_S``, and the device events split into one cluster per
+    run at the gaps longer than half the pause.  Chip runs whose later
+    traces followed many launches lost device events, so a phase that
+    traces many paths takes one session.  A trace whose clusters do not
+    hold each run's ``expects`` kernel is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        walls = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
+            for fn in fns:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                time.sleep(TRACE_PAUSE_S)
+        evts = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        clusters, end = [], None
+        for e in evts:
+            if end is None or e.time_range.start - end > TRACE_PAUSE_S * 5e5:
+                clusters.append([])
+                end = e.time_range.end
+            clusters[-1].append(e)
+            end = max(end, e.time_range.end)
+        out = []
+        for wall_ms, cluster in zip(walls, clusters):
+            busy: dict[str, tuple[float, int]] = {}
+            for e in cluster:
+                us, count = busy.get(e.name, (0.0, 0))
+                busy[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+            span_ms = (max(e.time_range.end for e in cluster)
+                       - cluster[0].time_range.start) / 1e3
+            out.append((wall_ms, span_ms, busy))
+        if len(clusters) == len(fns) and all(x in b for x, (_, _, b) in zip(expects, out)):
+            return out
+        log(f"[profile] trace attempt {attempt} of {attempts}: {len(evts)} device events in "
+            f"{len(clusters)} clusters for {len(fns)} runs, expected kernels "
+            f"{[x in b for x, (_, _, b) in zip(expects, out)]}")
+    raise AssertionError(f"torch.profiler did not record {expects} in {attempts} traces")
+
+
 def log_breakdown(card: str, entry: str, fn, expect: str) -> None:
     """Print :func:`device_breakdown` of one run of ``fn``."""
     wall_ms, span_ms, busy = device_breakdown(fn, expect)
@@ -263,6 +351,10 @@ def _wrappers() -> dict:
     return {
         "prg_bm_kernel": aes_cuda.prg_planes_bm,
         "mmo_bm_canon_kernel": aes_cuda.mmo_planes_bm_canon,
+        "prg_canon_kernel": aes_cuda.prg_planes_canon,
+        "mmo_canon_kernel": aes_cuda.mmo_planes_canon,
+        "prg_bm_il_kernel": aes_cuda.prg_planes_bm_il,
+        "fused_levels_bm_kernel": aes_cuda.fused_levels_planes,
         "fused_levels_kernel": chacha_cuda.fused_levels,
         "expand_tail_kernel": chacha_cuda.expand_tail,
         "walk_bm_kernel": aes_cuda.eval_points_walk_planes,
@@ -311,6 +403,200 @@ def fast_operands(rng, k: int, w: int, levels: int, dev):
     scw[:, :, 0] &= ~np.uint32(1)
     tcw = words(k, levels, 2) & np.uint32(1)
     return tuple(to_carrier(a, dev) for a in (st, scw, tcw, words(k, 16)))
+
+
+# ---------------------------------------------------------------------------
+# The compat EvalFull options: backend= and fuse= (phases 28-31)
+# ---------------------------------------------------------------------------
+
+
+def route_name(route) -> str:
+    backend, fuse, max_words = route
+    return backend + (f" fuse={fuse}" if fuse else "") + (
+        f" max_plane_words=2^{max_words.bit_length() - 1}" if max_words else "")
+
+
+def route_kwargs(route) -> dict:
+    backend, fuse, max_words = route
+    kw = {"backend": backend, "fuse": fuse}
+    return kw if max_words is None else {**kw, "max_plane_words": max_words}
+
+
+def option_routes(dev, card: str, ka, kb, alphas, out_a) -> dict:
+    """Phase 28: every route of OPTION_ROUTES through
+    ``eval_full_batch(kb, backend=, fuse=)`` for both parties at config 2,
+    launch counters zeroed just before and read just after each, held to
+    the default route's bytes, the spec and the reconstruction -> {route:
+    its launches}."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch.core import spec
+
+    blobs = ka.to_bytes()
+    launches = {}
+    for route, per_eval in OPTION_ROUTES.items():  # 28
+        name = route_name(route)
+        kw = route_kwargs(route)
+        (ra, rb), got = counted(
+            f"{name} n={LOG_N} K={K}, 2 evaluations",
+            lambda: (P.eval_full_batch(ka, **kw), P.eval_full_batch(kb, **kw)),
+            {k: 2 * n for k, n in per_eval.items()})
+        if not np.array_equal(ra, out_a):
+            raise AssertionError(f"{name}: bytes != the default route's")
+        for i in (0, 1, K // 2, K - 1):
+            if ra[i].tobytes() != spec.eval_full(blobs[i], LOG_N):
+                raise AssertionError(f"{name}: key {i} != spec.eval_full")
+        assert_one_bit_at_alphas(ra ^ rb, alphas)
+        launches[route] = got
+        log(f"[options] {name}: bytes == the default route's; keys 0, 1, K/2, K-1 == "
+            f"spec.eval_full; both shares reconstruct to one bit at each alpha")
+        del ra, rb
+    return launches
+
+
+def option_times(dev, card: str, ka) -> None:
+    """Phase 29: each route's ``eval_full_device`` at config 2 traced (all
+    in one profiler session, after the other paths' traces and before any
+    plain version's run in phases 19 on), timed with CUDA events, and its
+    host launch time.  Phase 28 checks the same routes' bytes after."""
+    from dpf_tpu_torch.models import dpf as mdpf
+
+    dk = mdpf.DeviceKeys(ka, dev)
+    leaves = K << LOG_N
+    routes = [("pallas_bm", None, None), *OPTION_ROUTES]
+    fns = [functools.partial(mdpf.eval_full_device, dk, **route_kwargs(r)) for r in routes]
+    expects = [next(k for k in ("fused_levels_bm_kernel", "prg_bm_il_kernel",
+                                "prg_canon_kernel", "prg_bm_kernel") if k in
+                    OPTION_ROUTES.get(r, {"prg_bm_kernel": 13})) for r in routes]
+    for route, fn, (wall_ms, span_ms, busy) in zip(routes, fns,
+                                                   device_breakdowns(fns, expects)):
+        total = sum(us for us, _ in busy.values()) / 1e3
+        top = ", ".join(f"{kname[:40]} {us / 1e3:.3f} ms {n}x" for kname, (us, n) in
+                        sorted(busy.items(), key=lambda kv: -kv[1][0])[:4])
+        dev_ms, enq_ms = cuda_ms(fn), enqueue_ms(fn)
+        log(f"[options time] {card}: eval_full_device {route_name(route)}: {dev_ms:.4f} "
+            f"ms ({leaves / dev_ms / 1e6:.2f} Gleaves/s), host launch time {enq_ms:.3f} "
+            f"ms; traced: wall {wall_ms:.3f} ms, busy {total:.3f} ms in "
+            f"{sum(n for _, n in busy.values())} device events, idle "
+            f"{100 - 100 * total / span_ms:.1f} % of the span; {top}")
+
+
+def option_kernels(dev, card: str, sm_clocks_per_s: float, ka, launches) -> list[dict]:
+    """Phases 30-31: the four new kernels against their plain versions on
+    the card (at their config-2 shapes and odd widths), then their times
+    beside their bounds and plain versions -> their rows of the kernels
+    line."""
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.ops import aes_cuda, op_count
+    from dpf_tpu_torch.ops.aes_bitslice import to_carrier
+
+    rng = np.random.default_rng(2026)
+
+    def planes(*shape):
+        return to_carrier(rng.integers(0, 1 << 32, size=shape, dtype=np.uint32), dev)
+
+    flat = {  # name: (wrapper, plain, TPU kernel, MMOs a column, outputs, B)
+        "prg_canon_kernel": (aes_cuda.prg_planes_canon, aes_cuda.prg_planes_canon_plain,
+                             "dpf_tpu/ops/aes_pallas.py:121", 2, 2, PRG_B),
+        "mmo_canon_kernel": (aes_cuda.mmo_planes_canon, aes_cuda.mmo_planes_canon_plain,
+                             "dpf_tpu/ops/aes_pallas.py:128", 1, 1, LEAF_B),
+        "prg_bm_il_kernel": (aes_cuda.prg_planes_bm_il, aes_cuda.prg_planes_bm_il_plain,
+                             "dpf_tpu/ops/aes_pallas.py:237", 2, 2, PRG_B),
+    }
+    err = {}
+    for kname, (wrapper, plain, _, _, _, B) in flat.items():  # 30
+        err[kname] = 0
+        for b in (*ODD_WIDTHS, B):
+            S = planes(128, b)
+            got, want = wrapper(S), plain(S)
+            for g_, w_ in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
+                err[kname] = max(err[kname], check_equal(kname, g_, w_, f"[128, {b}]"))
+        log(f"[kernel] {kname} == plain at [128, B] for B in {(*ODD_WIDTHS, B)}")
+
+    # The fused groups at the config-2 entry: level 7's [128, 32, 128] state.
+    dk = mdpf.DeviceKeys(ka, dev)
+    seeds, scw = mdpf._to_bm(dk.seed_planes, dk.scw_planes)
+    first = mdpf._FUSE_FLOOR
+    S7, T7 = mdpf._expand(first, 0, seeds, dk.t_words, scw, dk.tl_words, dk.tr_words,
+                          aes_cuda.prg_planes_bm)
+    S7, T7 = S7.transpose(1, 2).contiguous(), T7.transpose(0, 1).contiguous()
+    kp, w7 = T7.shape
+    err["fused_levels_bm_kernel"] = 0
+    checks = [(kp, w7, g, True) for g in (1, 2, 3, 4)] + [(*c, False) for c in FUSED_CHECKS]
+    for kp_, w_, g, real in checks:
+        if real:  # the real entry state and CWs of levels 7 .. 6 + g
+            ops = (S7, T7, scw[first : first + g], dk.tl_words[first : first + g],
+                   dk.tr_words[first : first + g])
+        else:  # random words, plane 0 of the seed CWs zero as Gen makes it
+            cw = planes(g, 128, kp_)
+            cw[:, 0] = 0
+            ops = (planes(128, kp_, w_), planes(kp_, w_), cw, planes(g, kp_), planes(g, kp_))
+        got, want = aes_cuda.fused_levels_planes(*ops), aes_cuda.fused_levels_planes_plain(*ops)
+        for g_, w_2 in zip(got, want):
+            err["fused_levels_bm_kernel"] = max(err["fused_levels_bm_kernel"], check_equal(
+                "fused_levels_bm_kernel", g_, w_2, f"Kp={kp_} W={w_} g={g}"))
+        del got, want
+    log(f"[kernel] fused_levels_bm_kernel == plain on config 2's level-7 entry "
+        f"[128, {kp}, {w7}] for g = 1, 2, 3, 4 and on random state at (Kp, W, g) in "
+        f"{FUSED_CHECKS}")
+
+    rows = []
+    int_ops_per_s = LOP3_PER_SM_CLOCK * sm_clocks_per_s
+    for kname, (wrapper, plain, replaces, n_mmo, n_out, B) in flat.items():  # 31
+        S = planes(128, B)
+        k_ms, e_ms = kernel_ms(lambda: wrapper(S)), cuda_ms(lambda: wrapper(S))
+        p_ms = cuda_ms(lambda: plain(S))
+        ops = op_count.lop3_per_column(n_mmo) * B
+        nbytes = (1 + n_out) * 128 * B * 4
+        ops_ms, bytes_ms = ops / int_ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"[time] {card}: {kname} at [128, {B}]: kernel {k_ms:.4f} ms (queued; "
+            f"{e_ms:.4f} ms one call at a time), plain {p_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({ops:.3e} LOP3 -> {ops_ms:.4f} ms, {nbytes:.3e} B -> "
+            f"{bytes_ms:.4f} ms), {100 * bound_ms / k_ms:.1f} % of the bound")
+        route = ("pallas_bm_il", None, None) if kname == "prg_bm_il_kernel" else (
+            "pallas", None, None)
+        rows.append({
+            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": launches[route][kname], "max_abs_err": err[kname], "ms": k_ms,
+            "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+        })
+
+    # The fused groups of one evaluation from the level-7 entry, per fuse.
+    nu = dk.nu
+    for fuse in (1, 2, 3, 4):
+        _, groups = mdpf._fuse_schedule(nu, fuse)
+
+        def fused_groups(fused=aes_cuda.fused_levels_planes):
+            return mdpf._fused_groups(S7.transpose(1, 2), T7.transpose(0, 1), scw,
+                                      dk.tl_words, dk.tr_words, first, groups, fused)
+
+        k_ms, e_ms = kernel_ms(fused_groups), cuda_ms(fused_groups)
+        columns = op_count.fused_prg_columns(kp * w7, nu - first)
+        ops = op_count.lop3_per_column(2) * columns
+        leaf_words = kp * (w7 << (nu - first))
+        nbytes = 4 * (129 * kp * w7 + (nu - first) * 130 * kp + 129 * leaf_words)
+        ops_ms, bytes_ms = ops / int_ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"[time] {card}: fused_levels_bm_kernel, fuse={fuse} (groups {groups}) from "
+            f"[128, {kp}, {w7}] at level {first}: kernel {k_ms:.4f} ms (queued; {e_ms:.4f} "
+            f"ms one call at a time), bound {bound_ms:.4f} ms ({columns} PRG columns, "
+            f"{ops:.3e} LOP3 -> {ops_ms:.4f} ms, {nbytes:.3e} B -> {bytes_ms:.4f} ms), "
+            f"{100 * bound_ms / k_ms:.1f} % of the bound")
+        if (fuse, None) == FUSED_ROUTE[1:]:
+            p_ms = cuda_ms(lambda: fused_groups(aes_cuda.fused_levels_planes_plain),
+                           warmup=1, reps=3)
+            log(f"[time] {card}: fused_levels_planes_plain, the same groups: {p_ms:.3f} ms")
+            rows.append({
+                "name": "fused_levels_bm_kernel", "route": "cuda", "source": FUSED_SOURCE,
+                "replaces": "dpf_tpu/ops/aes_pallas.py:530",
+                "launches": launches[FUSED_ROUTE]["fused_levels_bm_kernel"],
+                "max_abs_err": err["fused_levels_bm_kernel"], "ms": k_ms, "event_ms": e_ms,
+                "plain_ms": p_ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": None,
+            })
+    return rows
 
 
 def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
@@ -1212,8 +1498,15 @@ def main() -> int:
     rows_out += fast_phases(dev, card, n_sm * clock_hz)
     point_head = point_traced(dev, card)
     gate_head = gate_traced(dev, card, n_sm * clock_hz)
+    # The compat options after the other paths' traces, traced first:
+    # traces taken after many launches lose device events.
+    option_times(dev, card, ka)
+    option_launches = option_routes(dev, card, ka, kb, alphas, out_a)
     rows_out += point_checked(dev, card, n_sm * clock_hz, point_head)
     rows_out += gate_checked(dev, card, n_sm * clock_hz, gate_head)
+    # The option kernels' plain versions run last: traces after many small
+    # plain launches lose device events.
+    rows_out += option_kernels(dev, card, n_sm * clock_hz, ka, option_launches)
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     log(f"[card] {card}")

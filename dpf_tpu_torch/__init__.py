@@ -5,7 +5,16 @@ same output bytes come out.  It carries the compat profile (keys
 byte-compatible with dkales/dpf-go) from host Gen to full-domain evaluation,
 whose PRG and leaf convert run as hand-written CUDA kernels
 (``ops/csrc/aes_mmo.cu``), and to pointwise evaluation, whose whole walk is
-one kernel (``ops/csrc/aes_walk.cu``); the same paths for the ChaCha fast
+one kernel (``ops/csrc/aes_walk.cu``).  Full-domain evaluation takes the
+JAX package's kernel options: ``backend="pallas_bm"`` (the default; bit-major
+level state, ``prg_bm_kernel`` and ``mmo_bm_canon_kernel`` replacing
+``_prg_kernel_bm`` and ``_mmo_canon_kernel_bm``), ``"pallas_bm_il"``
+(``prg_bm_il_kernel`` for ``_prg_kernel_bm_il``), ``"pallas"`` or ``"xla"``
+(canonical order, ``prg_canon_kernel`` and ``mmo_canon_kernel`` for
+``_prg_kernel`` and ``_mmo_kernel``), and ``fuse=g`` on a bit-major backend
+(``ops/csrc/aes_fused.cu::fused_levels_bm_kernel`` for
+``_fused_levels_kernel_bm``), all with the same bytes.  The same paths for
+the ChaCha fast
 profile are in :mod:`dpf_tpu_torch.fast` (kernels
 ``ops/csrc/chacha_expand.cu``, ``ops/csrc/chacha_walk.cu``).  The package
 imports neither JAX nor ``dpf_tpu``.
@@ -20,6 +29,7 @@ Batch API:
 
     kba, kbb = dpf_tpu_torch.gen_batch(alphas, log_n)   # host, vectorized
     out      = dpf_tpu_torch.eval_full_batch(kba)       # uint8[K, 2^(n-3)]
+    out      = dpf_tpu_torch.eval_full_batch(kba, backend="pallas", fuse=None)
     bits     = dpf_tpu_torch.eval_points_batch(kba, xs)  # xs uint64[K, Q] -> uint8[K, Q]
     words    = dpf_tpu_torch.eval_points_batch(kba, xs, packed=True)  # uint32[K, ceil(Q/32)]
 
@@ -99,7 +109,11 @@ def EvalFull(key: bytes, log_n: int, backend: str = "auto", device=None) -> byte
 
 def eval_full_batch(kb: KeyBatch, device=None, **kwargs) -> np.ndarray:
     """Full-domain evaluation of a key batch -> uint8[K, 2^(log_n-3)].
-    ``kwargs`` go to :func:`dpf_tpu_torch.models.dpf.eval_full`."""
+    ``kwargs`` go to :func:`dpf_tpu_torch.models.dpf.eval_full`:
+    ``max_plane_words``, ``backend`` (``"pallas_bm"`` by default,
+    ``"pallas_bm_il"``, ``"pallas"`` or ``"xla"``) and ``fuse`` (None or 0:
+    per level; g >= 1: fused groups of at most g levels on the bit-major
+    backends).  Every choice gives the same bytes."""
     return _dpf.eval_full(kb, device=device, **kwargs)
 
 

@@ -95,7 +95,12 @@ def EvalFull(key: bytes, log_n: int, backend: str = "auto", device=None) -> byte
 
 def eval_full_batch(kb: KeyBatchFast, device=None, **kwargs) -> np.ndarray:
     """Full-domain evaluation of a key batch -> uint8[K, out_bytes].
-    ``kwargs`` go to :func:`dpf_tpu_torch.models.dpf_chacha.eval_full`."""
+    ``kwargs`` go to :func:`dpf_tpu_torch.models.dpf_chacha.eval_full`:
+    ``max_leaf_nodes``, and the JAX package's ``backend`` (``"pallas"`` or
+    ``"xla"``) and ``fuse``, which leave the bytes and the kernel route as
+    they are (the prefix launches already cover the JAX fused schedule;
+    the compat profile's ``fuse`` is ``fused_levels_bm_kernel`` of
+    ``ops/csrc/aes_fused.cu``)."""
     return _eval_full(kb, device=device, **kwargs)
 
 

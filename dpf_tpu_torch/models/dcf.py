@@ -63,7 +63,7 @@ class DcfKeyBatch:
     # The walk's operands per device (ops/chacha_cuda.dcf_walk_operands),
     # built at first use: key material is immutable once evaluated.
     _walk_ops: dict = field(default_factory=dict, repr=False, compare=False)
-    # eval_interval_points' fused batch (see fused_pair), when this batch
+    # eval_interval_points' fused batch (see _fused_pair), when this batch
     # is an interval's upper half.
     _both: object = field(default=None, repr=False, compare=False)
 
@@ -270,7 +270,7 @@ def eval_lt_points(
     return cp.eval_points_walk_dcf(kb, xs, packed=packed, device=_resolve_device(device))
 
 
-def interval_alphas(lo, hi, log_n: int, tag: str):
+def _interval_alphas(lo, hi, log_n: int, tag: str):
     """Checked bounds of interval gates ``1{lo <= x <= hi}`` -> (upper
     alphas, lower alphas, party A's constants, party B's constants).  The
     gate is ``1{x < hi+1} ^ 1{x < lo}``; where ``hi = 2^n - 1`` (hi + 1
@@ -292,7 +292,7 @@ def interval_alphas(lo, hi, log_n: int, tag: str):
     return upper, lo, const_a, np.zeros_like(const_a)
 
 
-def fold_const(out: np.ndarray, const: np.ndarray, q: int, packed: bool) -> np.ndarray:
+def _fold_const(out: np.ndarray, const: np.ndarray, q: int, packed: bool) -> np.ndarray:
     """XOR the interval gates' public constants (0 or 1 a gate) into their
     shares: uint8[G, Q] bits, or uint32[G, ceil(Q/32)] words, whose tail
     bits the complement sets and the mask clears again."""
@@ -302,7 +302,7 @@ def fold_const(out: np.ndarray, const: np.ndarray, q: int, packed: bool) -> np.n
     return out ^ const[:, None]
 
 
-def concat_batches(a, b):
+def _concat_batches(a, b):
     """One key batch of ``a``'s keys then ``b``'s, for the key batches of
     either profile and the DCF (their array fields, caches left empty)."""
     names = [f.name for f in dataclasses.fields(a)
@@ -311,14 +311,14 @@ def concat_batches(a, b):
                    **{n: np.concatenate([getattr(a, n), getattr(b, n)]) for n in names})
 
 
-def fused_pair(holder, upper, lower):
+def _fused_pair(holder, upper, lower):
     """The interval's fused ``upper || lower`` batch, built once and memoized
     in ``holder._both`` with its device operands.  The memo is keyed on the
     *pair*: a fused batch built against another half would return wrong
     interval shares."""
     memo = holder._both
     if memo is None or memo[0] is not upper or memo[1] is not lower:
-        memo = holder._both = (upper, lower, concat_batches(upper, lower))
+        memo = holder._both = (upper, lower, _concat_batches(upper, lower))
     return memo[2]
 
 
@@ -333,7 +333,7 @@ def gen_interval_batch(
     always-0 upper gate plus a public constant on party A).  Returns two
     (upper, lower, const) triples, upper drawn first; evaluate with
     :func:`eval_interval_points`."""
-    upper_alpha, lo, const_a, const_b = interval_alphas(lo, hi, log_n, "dcf")
+    upper_alpha, lo, const_a, const_b = _interval_alphas(lo, hi, log_n, "dcf")
     ua, ub = gen_lt_batch(upper_alpha, log_n, rng=rng)
     la, lb = gen_lt_batch(lo, log_n, rng=rng)
     return (ua, la, const_a), (ub, lb, const_b)
@@ -357,7 +357,7 @@ def eval_interval_points(
     xs = np.asarray(xs, dtype=np.uint64)
     if xs.ndim != 2 or xs.shape[0] != upper.k:
         raise ValueError("dcf: xs must be [K, Q]")
-    both = fused_pair(upper, upper, lower)
+    both = _fused_pair(upper, upper, lower)
     k = upper.k
     out = lt_eval(both, np.concatenate([xs, xs]), packed=packed)
-    return fold_const(out[:k] ^ out[k:], const, xs.shape[1], packed)
+    return _fold_const(out[:k] ^ out[k:], const, xs.shape[1], packed)

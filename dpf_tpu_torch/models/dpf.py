@@ -10,11 +10,15 @@ W nodes, keys packed 32 per word), and one step per level does
     control-bit extraction + clearing (plane 0)      reference dpf.go:62-67
     correction-word XOR masked by parent t-bits      reference dpf.go:230-238
 
-The level state is held in bit-major plane order (``aes_cuda._TO_BM``) for
-the whole expansion; the leaf convert emits canonical order.  The PRG and the
-leaf MMO are the CUDA kernels of ``ops/aes_cuda.py`` on the card and their
-plain versions on the CPU; the glue around them is plain PyTorch, as it is
-XLA outside Pallas in the JAX package.
+``backend`` picks the kernels, as in the JAX package: ``"pallas_bm"`` (the
+default) and ``"pallas_bm_il"`` hold the level state in bit-major plane order
+(``aes_cuda._TO_BM``) for the whole expansion and the leaf convert emits
+canonical order; ``"pallas"`` and ``"xla"`` keep it canonical throughout.
+``fuse=g`` on a bit-major backend runs the levels from ``_FUSE_FLOOR`` down
+as groups of at most g levels, each one ``fused_levels_planes`` launch.  The
+PRG, the leaf MMO and the fused levels are the CUDA kernels of
+``ops/aes_cuda.py`` on the card and their plain versions on the CPU; the glue
+around them is plain PyTorch, as it is XLA outside Pallas in the JAX package.
 
 Outputs are byte-identical to the reference: leaves emit in ascending index
 order (children interleave L,R like the DFS emit order), and each leaf is the
@@ -48,10 +52,18 @@ from ..ops.aes_cuda import (
     _fold,
     eval_points_walk_planes,
     eval_points_walk_planes_plain,
+    fused_levels_planes,
+    fused_levels_planes_plain,
     mmo_planes_bm_canon,
     mmo_planes_bm_canon_plain,
+    mmo_planes_canon,
+    mmo_planes_canon_plain,
     prg_planes_bm,
+    prg_planes_bm_il,
+    prg_planes_bm_il_plain,
     prg_planes_bm_plain,
+    prg_planes_canon,
+    prg_planes_canon_plain,
 )
 
 # Soft cap on W * Kp (words per plane) for a single expansion; above this
@@ -59,13 +71,41 @@ from ..ops.aes_cuda import (
 # the [128, W, Kp] tensor is 256 MB; a few live at once during a step.
 MAX_PLANE_WORDS = 1 << 19
 
-# impl -> (PRG, leaf MMO).  None: the wrappers, which launch the kernels on
-# CUDA tensors and run the plain versions on CPU tensors.  "plain": the
-# plain versions on any device (chip_smoke.py holds the kernels against it).
-_IMPLS = {
-    None: (prg_planes_bm, mmo_planes_bm_canon),
-    "plain": (prg_planes_bm_plain, mmo_planes_bm_canon_plain),
+# backend -> impl -> (PRG, leaf MMO).  impl None: the wrappers, which launch
+# the kernels on CUDA tensors and run the plain versions on CPU tensors.
+# "plain": the plain versions on any device (chip_smoke.py holds the kernels
+# against them).  "xla" is the JAX package's canonical-order XLA expression
+# of the same function, so it runs the canonical kernels here.
+_CANON = {
+    None: (prg_planes_canon, mmo_planes_canon),
+    "plain": (prg_planes_canon_plain, mmo_planes_canon_plain),
 }
+_IMPLS = {
+    "pallas_bm": {
+        None: (prg_planes_bm, mmo_planes_bm_canon),
+        "plain": (prg_planes_bm_plain, mmo_planes_bm_canon_plain),
+    },
+    "pallas_bm_il": {
+        None: (prg_planes_bm_il, mmo_planes_bm_canon),
+        "plain": (prg_planes_bm_il_plain, mmo_planes_bm_canon_plain),
+    },
+    "pallas": _CANON,
+    "xla": _CANON,
+}
+# Backends whose level state lives in bit-major plane order.
+_BM_BACKENDS = frozenset({"pallas_bm", "pallas_bm_il"})
+# impl -> the fused levels (bit-major backends' fuse= route).
+_FUSED_IMPLS = {None: fused_levels_planes, "plain": fused_levels_planes_plain}
+
+
+def _resolve_backend(backend: str | None) -> str:
+    """``None`` means ``"pallas_bm"``; any other name must be one of the JAX
+    package's (``dpf_tpu.models.dpf._PRG_IMPLS``)."""
+    if backend is None:
+        return "pallas_bm"
+    if backend not in _IMPLS:
+        raise ValueError(f"backend {backend!r} unknown; choose from {sorted(_IMPLS)}")
+    return backend
 
 
 def _resolve_device(device) -> torch.device:
@@ -175,31 +215,111 @@ def _to_bm(seed_planes, scw_planes):
 
 
 def _expand(n_levels, first, S, T, scw_planes, tl_w, tr_w, prg):
-    """Levels ``first .. first + n_levels - 1``; S and scw_planes bit-major."""
+    """Levels ``first .. first + n_levels - 1``; S and scw_planes in the
+    backend's plane order."""
     for i in range(first, first + n_levels):
         S, T = _level_step(S, T, scw_planes[i], tl_w[i], tr_w[i], prg)
     return S, T
 
 
+# ---------------------------------------------------------------------------
+# Level-fused expansion (fuse=; ops/aes_cuda.fused_levels_planes)
+# ---------------------------------------------------------------------------
+
+# Entry level of the fused groups, as in the JAX package: the levels above
+# run per level (a vanishing fraction of the work).
+_FUSE_FLOOR = 7
+
+
+def _fuse_schedule(n_levels, g, floor=_FUSE_FLOOR):
+    """(first_fused_level, group sizes) tiling levels floor..n_levels-1
+    into fused groups of <= g levels, or None when nothing can fuse.
+    ``floor`` is a parameter for tests."""
+    mid = n_levels - floor
+    if g <= 0 or mid <= 0:
+        return None
+    groups = []
+    while mid > 0:
+        t = min(g, mid)
+        groups.append(t)
+        mid -= t
+    return floor, tuple(groups)
+
+
+def _fuse_plan(nu: int, backend: str, fuse: int | None):
+    """The fused route's schedule, or None for the per-level pipeline.
+    ``fuse``: None or 0 = off (the JAX package's knob default), g >= 1 =
+    groups of <= g levels.  The fused state is bit-major: the canonical
+    backends keep the per-level path."""
+    if backend not in _BM_BACKENDS or fuse is None:
+        return None
+    return _fuse_schedule(nu, fuse)
+
+
+def _fused_groups(S, T, scw_planes, tl_w, tr_w, first, groups, fused):
+    """Run the fused groups from per-level bit-major state at level
+    ``first`` (S [128, W, Kp], T [W, Kp]) -> node-minor leaf-level state
+    (S_f [128, Kp, W'], T_f [Kp, W']), ascending node order."""
+    Sf = S.transpose(1, 2).contiguous()
+    Tf = T.transpose(0, 1).contiguous()
+    lvl = first
+    for g in groups:
+        Sf, Tf = fused(Sf, Tf, scw_planes[lvl : lvl + g], tl_w[lvl : lvl + g],
+                       tr_w[lvl : lvl + g])
+        lvl += g
+    return Sf, Tf
+
+
+def _convert_leaves_fused(Sf, Tf, fcw_planes, mmo):
+    """Leaf conversion + final CW from the node-minor layout: the MMO is
+    elementwise over column words, so it runs on the node-minor flattening
+    directly; the final CW is per key ([128, Kp, 1]); one transpose back
+    to [128, W, Kp] for the output words."""
+    C = mmo(Sf.reshape(128, -1)).view(Sf.shape)
+    C ^= fcw_planes.transpose(1, 2) & Tf[None]
+    return unpack_planes(C.transpose(1, 2))
+
+
 def eval_full_device(
-    dk: DeviceKeys, max_plane_words: int = MAX_PLANE_WORDS, impl: str | None = None
+    dk: DeviceKeys,
+    max_plane_words: int = MAX_PLANE_WORDS,
+    backend: str | None = None,
+    fuse: int | None = None,
+    *,
+    impl: str | None = None,
 ) -> torch.Tensor:
     """Full-domain evaluation on ``dk.device`` -> int32[K_padded, n_leaves, 4].
 
     The returned words ARE the bit-packed output: word q of leaf w holds
     domain bits [128*w + 32*q, 128*w + 32*q + 32), LSB-first.
 
+    ``backend``: ``"pallas_bm"`` (None), ``"pallas_bm_il"``, ``"pallas"``
+    or ``"xla"`` (module docstring); every one gives the same words.
+    ``fuse``: level-fused group size for the bit-major backends (None or 0
+    = off, g >= 1 = groups of <= g levels from level ``_FUSE_FLOOR``).  As
+    in the JAX package, the fused route covers the unchunked path; domains
+    split into subtree chunks run per level with the chosen backend.
+
     ``impl=None`` runs the kernels on CUDA and their plain versions on the
     CPU; ``impl="plain"`` runs the plain versions on either."""
-    if impl not in _IMPLS:
-        raise ValueError(f"impl must be one of {list(_IMPLS)}, got {impl!r}")
-    prg, mmo = _IMPLS[impl]
+    backend = _resolve_backend(backend)
+    if impl not in _IMPLS[backend]:
+        raise ValueError(f"impl must be one of {list(_IMPLS[backend])}, got {impl!r}")
+    prg, mmo = _IMPLS[backend][impl]
     nu = dk.nu
     kp = dk.k_padded // 32
     total = (1 << nu) * kp
-    seeds, scw = _to_bm(dk.seed_planes, dk.scw_planes)
+    seeds, scw = dk.seed_planes, dk.scw_planes
+    if backend in _BM_BACKENDS:
+        seeds, scw = _to_bm(seeds, scw)
     tl, tr = dk.tl_words, dk.tr_words
     if total <= max_plane_words:
+        sched = _fuse_plan(nu, backend, fuse)
+        if sched is not None:
+            first, groups = sched
+            S, T = _expand(first, 0, seeds, dk.t_words, scw, tl, tr, prg)
+            Sf, Tf = _fused_groups(S, T, scw, tl, tr, first, groups, _FUSED_IMPLS[impl])
+            return _convert_leaves_fused(Sf, Tf, dk.fcw_planes, mmo)
         S, T = _expand(nu, 0, seeds, dk.t_words, scw, tl, tr, prg)
         return _convert_leaves(S, T, dk.fcw_planes, mmo)
     # Chunked: expand a prefix of c levels, then finish each of the 2^c
@@ -220,14 +340,21 @@ def eval_full_device(
 
 
 def eval_full(
-    kb: KeyBatch, max_plane_words: int = MAX_PLANE_WORDS, device=None
+    kb: KeyBatch,
+    max_plane_words: int = MAX_PLANE_WORDS,
+    backend: str | None = None,
+    fuse: int | None = None,
+    *,
+    device=None,
 ) -> np.ndarray:
     """Full-domain evaluation of a key batch -> uint8[K, out_bytes], where
     out_bytes = 2^(log_n-3) (16 when log_n < 7), byte-identical to
-    ``spec.eval_full`` / the reference's EvalFull per key.  ``device=None``
-    is the card."""
+    ``spec.eval_full`` / the reference's EvalFull per key.  ``backend`` and
+    ``fuse`` as in :func:`eval_full_device`.  ``device=None`` is the
+    card."""
+    backend = _resolve_backend(backend)
     dk = DeviceKeys(kb, device)
-    words = eval_full_device(dk, max_plane_words)  # [Kpad, W, 4]
+    words = eval_full_device(dk, max_plane_words, backend, fuse)  # [Kpad, W, 4]
     return from_carrier(words[: kb.k]).view("<u1").reshape(kb.k, -1)
 
 
@@ -346,10 +473,13 @@ def _finish_words(words: torch.Tensor, Q: int, packed: bool) -> np.ndarray:
     return bitpack.mask_tail(w, Q) if packed else bitpack.unpack_bits(w, Q)
 
 
-def eval_points(kb: KeyBatch, xs: np.ndarray, packed: bool = False, device=None,
+def eval_points(kb: KeyBatch, xs: np.ndarray, backend: str | None = None,
+                packed: bool = False, *, device=None,
                 impl: str | None = None) -> np.ndarray:
     """Batched pointwise evaluation: xs uint64[K, Q] -> bits uint8[K, Q],
-    one walk launch on ``device`` (None: the card).
+    one walk launch on ``device`` (None: the card).  ``backend`` takes the
+    JAX package's names (``_IMPLS``; None as well) and picks nothing: every
+    backend runs the one walk kernel, whose bits are the same.
 
     ``packed=True`` returns the walk's native bit-packed form instead:
     uint32[K, ceil(Q/32)] words, query q at word q//32 bit q%32 (LSB-first;
@@ -357,6 +487,7 @@ def eval_points(kb: KeyBatch, xs: np.ndarray, packed: bool = False, device=None,
     query) lane, 32 queries of one key bitsliced per word (reference Eval,
     dpf/dpf.go:171-211, vectorized).  ``impl="plain"`` runs the walk's plain
     version on either device."""
+    _resolve_backend(backend)
     xs = np.asarray(xs, dtype=np.uint64)
     if xs.ndim != 2 or xs.shape[0] != kb.k:
         raise ValueError("xs first axis must match key batch")
@@ -422,7 +553,8 @@ def _grouped_walk_body(nu, log_n, groups, G, seed_masks, t_masks, scw_masks,
 
 def eval_points_level_grouped(
     kb: KeyBatch, xs: np.ndarray, groups: int, reduce: bool = False,
-    packed: bool = False, levels=None, device=None, impl: str | None = None,
+    backend: str | None = None, packed: bool = False, levels=None, *,
+    device=None, impl: str | None = None,
 ) -> np.ndarray:
     """FSS-support pointwise evaluation over level-major key groups
     (compat profile; mirror of ``dpf_chacha.eval_points_level_grouped``).
@@ -439,7 +571,9 @@ def eval_points_level_grouped(
     ``levels`` (a tuple of level indices in [0, log_n)) selects a subset of
     level blocks: ``kb`` then holds ``groups * len(levels) * G`` keys whose
     block ``j`` is level ``levels[j]``; the queries are masked on the host
-    and walked by :func:`eval_points`."""
+    and walked by :func:`eval_points`.  ``backend`` as in
+    :func:`eval_points`."""
+    _resolve_backend(backend)
     xs = np.asarray(xs, dtype=np.uint64)
     if xs.ndim != 2:
         raise ValueError("dpf: xs must be [G, Q]")

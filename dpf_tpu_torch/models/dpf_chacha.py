@@ -268,20 +268,44 @@ def _eval_full_kernel_chunked(fns, dk, entry, n_chunks):
     return out
 
 
+def _check_backend(backend: str | None) -> None:
+    """The JAX package's fast backends (``dpf_tpu.models.dpf_chacha``):
+    both run the one kernel route here, whose bytes are the same."""
+    if backend and backend not in ("xla", "pallas"):
+        raise ValueError(f"dpf-fast: unknown backend {backend!r}; choose from "
+                         "['pallas', 'xla']")
+
+
 def eval_full_device(
-    dk: DeviceKeysFast,
+    kb: KeyBatchFast | DeviceKeysFast,
     max_leaf_nodes: int = MAX_LEAF_NODES,
+    backend: str | None = None,
+    fuse: int | None = None,
+    *,
+    device=None,
     impl: str | None = None,
 ) -> torch.Tensor:
-    """Full-domain evaluation on ``dk.device`` -> int32[K, 2^nu, 16] leaf
-    words (word j of leaf w holds domain bits [512w + 32j, +32),
-    LSB-first).
+    """Full-domain evaluation -> int32[K, 2^nu, 16] leaf words (word j of
+    leaf w holds domain bits [512w + 32j, +32), LSB-first).
+
+    ``kb`` is a key batch, evaluated on ``device`` (None: the card) with
+    its key axis padded to the plan's 8-key quantum and cut back, or a
+    :class:`DeviceKeysFast` already on its device (``device`` unused).
+    ``backend`` (``"pallas"``, ``"xla"`` or None) and ``fuse`` take the JAX
+    package's values and leave the bytes as they are: the port has one
+    kernel route, whose prefix launches already cover the JAX fused
+    schedule (module docstring).
 
     ``impl=None`` runs the kernels on CUDA and their plain versions on the
     CPU; ``impl="plain"`` the plain versions on either."""
+    _check_backend(backend)
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {list(_IMPLS)}, got {impl!r}")
-    fns = _IMPLS[impl]
+    if isinstance(kb, KeyBatchFast):
+        pk = _pad_fast_batch(kb, (-kb.k) % cp._EKT)
+        words = eval_full_device(DeviceKeysFast(pk, device), max_leaf_nodes, impl=impl)
+        return words[: kb.k]
+    dk, fns = kb, _IMPLS[impl]
     nu, k = dk.nu, dk.k
     eligible, entry, kp = cp.expand_plan(nu, k, max_leaf_nodes)
     if eligible:
@@ -302,18 +326,18 @@ def eval_full_device(
 def eval_full(
     kb: KeyBatchFast,
     max_leaf_nodes: int = MAX_LEAF_NODES,
+    backend: str | None = None,
+    fuse: int | None = None,
+    *,
     device=None,
     impl: str | None = None,
 ) -> np.ndarray:
     """Full-domain evaluation -> uint8[K, out_bytes] bit-packed
     (out_bytes = 2^(log_n-3), at least 64), byte-identical to
-    ``chacha_np.eval_full`` per key.  The key axis is zero-padded to the
-    plan's 8-key quantum, as in the JAX routes.  ``device=None`` is the
-    card."""
-    pk = _pad_fast_batch(kb, (-kb.k) % cp._EKT)
-    dk = DeviceKeysFast(pk, device)
-    words = eval_full_device(dk, max_leaf_nodes, impl)
-    return from_carrier(words[: kb.k]).view("<u1").reshape(kb.k, -1)
+    ``chacha_np.eval_full`` per key.  ``backend`` and ``fuse`` as in
+    :func:`eval_full_device`.  ``device=None`` is the card."""
+    words = eval_full_device(kb, max_leaf_nodes, backend, fuse, device=device, impl=impl)
+    return from_carrier(words).view("<u1").reshape(kb.k, -1)
 
 
 # ---------------------------------------------------------------------------

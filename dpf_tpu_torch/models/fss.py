@@ -45,7 +45,7 @@ from ..core.keys import KeyBatch, gen_batch
 from ..core.keys_chacha import KeyBatchFast
 from ..ops.aes_bitslice import from_carrier
 from . import dpf, dpf_chacha
-from .dcf import fold_const, fused_pair, interval_alphas
+from .dcf import _fold_const, _fused_pair, _interval_alphas
 
 __all__ = [
     "CmpKeyBatch",
@@ -120,7 +120,7 @@ class IntervalKeyBatch:
     upper: CmpKeyBatch  # lt_{hi+1}
     lower: CmpKeyBatch  # lt_{lo}
     const: np.ndarray  # uint8 [G]
-    # eval_interval_points' fused upper||lower level batch (dcf.fused_pair).
+    # eval_interval_points' fused upper||lower level batch (dcf._fused_pair).
     _both: object = field(default=None, repr=False, compare=False)
 
 
@@ -201,7 +201,7 @@ def gen_interval_batch(
     ``hi = 2^n - 1`` edge (hi+1 leaves the domain) becomes an always-0 gate
     plus a public constant 1 on party A."""
     # alpha = 0 has no set bits -> every level inactive -> lt_0 == 0 shares.
-    upper_alpha, lo, const_a, const_b = interval_alphas(lo, hi, log_n, "fss")
+    upper_alpha, lo, const_a, const_b = _interval_alphas(lo, hi, log_n, "fss")
     ua, ub = gen_lt_batch(upper_alpha, log_n, rng=rng, profile=profile)
     la, lb = gen_lt_batch(lo, log_n, rng=rng, profile=profile)
     return IntervalKeyBatch(ua, la, const_a), IntervalKeyBatch(ub, lb, const_b)
@@ -218,9 +218,9 @@ def eval_interval_points(
     xs = np.asarray(xs, dtype=np.uint64)
     if xs.ndim != 2 or xs.shape[0] != ik.upper.g:
         raise ValueError("fss: xs must be [G, Q]")
-    both = fused_pair(ik, ik.upper.levels, ik.lower.levels)
+    both = _fused_pair(ik, ik.upper.levels, ik.lower.levels)
     out = grouped(both, xs, groups=2, reduce=True, packed=packed, device=device)
-    return fold_const(out, ik.const, xs.shape[1], packed)
+    return _fold_const(out, ik.const, xs.shape[1], packed)
 
 
 # ---------------------------------------------------------------------------

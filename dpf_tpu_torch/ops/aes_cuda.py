@@ -1,7 +1,7 @@
-"""The compat profile's AES-MMO kernels on bit-major planes, for Hopper.
+"""The compat profile's AES-MMO kernels on bitsliced planes, for Hopper.
 
-The port's counterpart of ``dpf_tpu/ops/aes_pallas.py`` (its bit-major
-family).  Three wrappers, each beside its plain PyTorch version:
+The port's counterpart of ``dpf_tpu/ops/aes_pallas.py``.  Seven wrappers,
+each beside its plain PyTorch version:
 
 - :func:`prg_planes_bm` (``csrc/aes_mmo.cu::prg_bm_kernel``, replacing
   ``_prg_kernel_bm``): the DPF PRG, both fixed-key MMOs, bit-major planes in
@@ -9,6 +9,15 @@ family).  Three wrappers, each beside its plain PyTorch version:
 - :func:`mmo_planes_bm_canon` (``mmo_bm_canon_kernel``, replacing
   ``_mmo_canon_kernel_bm``): the leaf convert, bit-major in, canonical plane
   order out;
+- :func:`prg_planes_canon` and :func:`mmo_planes_canon`
+  (``prg_canon_kernel``, ``mmo_canon_kernel``, replacing ``_prg_kernel`` and
+  ``_mmo_kernel``): the same PRG and leaf MMO on canonical planes in and out;
+- :func:`prg_planes_bm_il` (``prg_bm_il_kernel``, replacing
+  ``_prg_kernel_bm_il``): the bit-major PRG with both encryptions advancing
+  together, one warp each;
+- :func:`fused_levels_planes` (``csrc/aes_fused.cu::fused_levels_bm_kernel``,
+  replacing ``_fused_levels_kernel_bm``): up to :data:`FUSE_MAX_LEVELS` GGM
+  levels in one launch, children stored in ascending node order;
 - :func:`eval_points_walk_planes` (``csrc/aes_walk.cu::walk_bm_kernel``,
   replacing ``_walk_kernel_bm``): the whole pointwise walk of 32 queries of
   one key per column word, packed output bits.
@@ -53,6 +62,21 @@ def prg_planes_bm_plain(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def mmo_planes_bm_canon_plain(S: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`mmo_planes_bm_canon`."""
     return aes128_mmo_planes(permute_planes(S, _FROM_BM), RK_MASKS_L)
+
+
+def prg_planes_canon_plain(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`prg_planes_canon`."""
+    return prg_planes(S)
+
+
+def mmo_planes_canon_plain(S: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`mmo_planes_canon`."""
+    return aes128_mmo_planes(S, RK_MASKS_L)
+
+
+# Plain version of :func:`prg_planes_bm_il`: the interleaving changes the
+# schedule, not the function.
+prg_planes_bm_il_plain = prg_planes_bm_plain
 
 
 def _check_planes(S: torch.Tensor) -> None:
@@ -105,6 +129,126 @@ def mmo_planes_bm_canon(S: torch.Tensor) -> torch.Tensor:
 
 
 mmo_planes_bm_canon.launches = 0
+
+
+def prg_planes_canon(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """PRG on CANONICAL-order planes int32[128, B] -> (L, R), canonical.
+    Contract of ``dpf_tpu.ops.aes_pallas.prg_planes_pallas``, for any B."""
+    if S.device.type == "cpu":
+        return prg_planes_canon_plain(S)
+    _check_planes(S)
+    L, R = torch.empty_like(S), torch.empty_like(S)
+    _launch(build.load("aes_mmo").dpf_prg_canon, "prg_canon_kernel", S, (L, R))
+    prg_planes_canon.launches += 1
+    return L, R
+
+
+prg_planes_canon.launches = 0
+
+
+def mmo_planes_canon(S: torch.Tensor) -> torch.Tensor:
+    """Leaf-convert MMO (key L) on CANONICAL-order planes, canonical out.
+    Contract of ``dpf_tpu.ops.aes_pallas.mmo_planes_pallas``, for any B."""
+    if S.device.type == "cpu":
+        return mmo_planes_canon_plain(S)
+    _check_planes(S)
+    O = torch.empty_like(S)
+    _launch(build.load("aes_mmo").dpf_mmo_canon, "mmo_canon_kernel", S, (O,))
+    mmo_planes_canon.launches += 1
+    return O
+
+
+mmo_planes_canon.launches = 0
+
+
+def prg_planes_bm_il(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved PRG on BIT-MAJOR planes: :func:`prg_planes_bm`'s output,
+    with the two encryptions run side by side by two warps.  Contract of
+    ``dpf_tpu.ops.aes_pallas.prg_planes_pallas_bm_il``, for any B."""
+    if S.device.type == "cpu":
+        return prg_planes_bm_il_plain(S)
+    _check_planes(S)
+    L, R = torch.empty_like(S), torch.empty_like(S)
+    _launch(build.load("aes_mmo").dpf_prg_bm_il, "prg_bm_il_kernel", S, (L, R))
+    prg_planes_bm_il.launches += 1
+    return L, R
+
+
+prg_planes_bm_il.launches = 0
+
+
+# Levels one fused launch runs at most (aes_fused.cu's kFusedMaxG): its walk
+# recomputes the upper levels of a group per path, 4/3 of the tree's MMOs at
+# 4 levels, more above; a longer group splits into launches of at most this.
+FUSE_MAX_LEVELS = 4
+
+
+def fused_levels_planes_plain(S, T, scw_bm, tl_w, tr_w):
+    """Plain version of :func:`fused_levels_planes`: the evaluator's level
+    step, once a level, on the node-minor layout."""
+    for i in range(scw_bm.shape[0]):
+        kp, W = T.shape
+        L, R = (x.view(128, kp, W) for x in prg_planes_bm_plain(S.reshape(128, -1)))
+        tl, tr = L[0].clone(), R[0].clone()
+        L[0] = 0
+        R[0] = 0
+        cw = scw_bm[i][:, :, None] & T[None]  # the CW where the parent t is set
+        L ^= cw
+        R ^= cw
+        tl ^= tl_w[i][:, None] & T
+        tr ^= tr_w[i][:, None] & T
+        S = torch.stack([L, R], dim=3).reshape(128, kp, 2 * W)
+        T = torch.stack([tl, tr], dim=2).reshape(kp, 2 * W)
+    return S, T
+
+
+def fused_levels_planes(S, T, scw_bm, tl_w, tr_w):
+    """``g = scw_bm.shape[0]`` consecutive GGM levels from node-minor
+    bit-major state: S int32[128, Kp, W], T int32[Kp, W], scw_bm
+    int32[g, 128, Kp], tl_w / tr_w int32[g, Kp] -> (S' [128, Kp, W << g],
+    T' [Kp, W << g]), children in ascending node order.  What the
+    reference's ``fused_levels_planes`` and ``fused_deinterleave`` return
+    together, for any Kp, W >= 1; one launch per :data:`FUSE_MAX_LEVELS`
+    levels."""
+    if S.device.type == "cpu":
+        return fused_levels_planes_plain(S, T, scw_bm, tl_w, tr_w)
+    if S.device.type != "cuda":
+        raise ValueError(f"expected a CUDA or CPU tensor, got {S.device}")
+    if S.dim() != 3 or S.shape[0] != 128:
+        raise ValueError(f"S: expected [128, Kp, W], got {list(S.shape)}")
+    kp, W = S.shape[1:]
+    g = scw_bm.shape[0]
+    if kp < 1 or W < 1 or g < 1:
+        raise ValueError(f"fused levels: needs Kp, W, g >= 1; got {kp}, {W}, {g}")
+    dev = S.device
+    for name, x, shape in (
+        ("S", S, (128, kp, W)), ("T", T, (kp, W)), ("scw_bm", scw_bm, (g, 128, kp)),
+        ("tl_w", tl_w, (g, kp)), ("tr_w", tr_w, (g, kp)),
+    ):
+        _check_walk_operand(name, x, shape, dev)
+    lib = build.load("aes_fused")
+    for first in range(0, g, FUSE_MAX_LEVELS):
+        n = min(FUSE_MAX_LEVELS, g - first)
+        w = S.shape[2]
+        So = torch.empty((128, kp, w << n), dtype=torch.int32, device=dev)
+        To = torch.empty((kp, w << n), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.dpf_fused_bm(
+                *(x.data_ptr() for x in (S, T, scw_bm[first : first + n],
+                                         tl_w[first : first + n],
+                                         tr_w[first : first + n], So, To)),
+                kp, w, n, stream,
+            )
+        if rc:
+            msg = lib.dpf_fused_error_string(rc).decode()
+            raise RuntimeError(f"fused_levels_bm_kernel launch failed: CUDA error {rc} ({msg})")
+        fused_levels_planes.launches += 1
+        S, T = So, To
+    return S, T
+
+
+fused_levels_planes.launches = 0
 
 
 def _fold(x: torch.Tensor, op) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 ``nvcc`` compiles each source of :data:`LIBRARIES` (``csrc/aes_mmo.cu``,
-``csrc/aes_walk.cu``, ``csrc/chacha_expand.cu``, ``csrc/chacha_walk.cu``;
-plain C interfaces, no PyTorch headers) into a
+``csrc/aes_fused.cu``, ``csrc/aes_walk.cu``, ``csrc/chacha_expand.cu``,
+``csrc/chacha_walk.cu``; plain C interfaces, no PyTorch headers) into a
 shared library of its own under ``build/`` beside the package, named by a
 hash of its source, headers and flags, so an unchanged tree reuses its
 build.  :func:`build_all` runs the nvcc processes side by side.
@@ -29,6 +29,7 @@ CSRC = Path(__file__).parent / "csrc"
 # into a library of its own, all of them in parallel (one nvcc each).
 LIBRARIES = {
     "aes_mmo": (CSRC / "aes_mmo.cu", (CSRC / "aes_bm.cuh", CSRC / "sbox_bp113.cuh")),
+    "aes_fused": (CSRC / "aes_fused.cu", (CSRC / "aes_bm.cuh", CSRC / "sbox_bp113.cuh")),
     "aes_walk": (CSRC / "aes_walk.cu", (CSRC / "aes_bm.cuh", CSRC / "sbox_bp113.cuh")),
     "chacha_expand": (CSRC / "chacha_expand.cu", (CSRC / "chacha12.cuh",)),
     "chacha_walk": (CSRC / "chacha_walk.cu", (CSRC / "chacha12.cuh",)),
@@ -46,7 +47,15 @@ _SIGNATURES = {
     "aes_mmo": {
         "dpf_prg_bm": ([_vp, _vp, _vp, _ll, _vp], _int),
         "dpf_mmo_bm_canon": ([_vp, _vp, _ll, _vp], _int),
+        "dpf_prg_canon": ([_vp, _vp, _vp, _ll, _vp], _int),
+        "dpf_mmo_canon": ([_vp, _vp, _ll, _vp], _int),
+        "dpf_prg_bm_il": ([_vp, _vp, _vp, _ll, _vp], _int),
         "dpf_error_string": ([_int], ctypes.c_char_p),
+    },
+    "aes_fused": {
+        # S, T, scw, tl, tr, So, To, Kp, W, g, stream
+        "dpf_fused_bm": ([_vp] * 7 + [_ll, _ll, _int, _vp], _int),
+        "dpf_fused_error_string": ([_int], ctypes.c_char_p),
     },
     "chacha_expand": {
         # state, its row and key strides, K, W, levels, scw, key stride,

@@ -1,6 +1,7 @@
 // Fixed-key AES-128 on one column word's bit-major planes: the per-column
 // cipher shared by the compat profile's kernels (aes_mmo.cu: the PRG and the
-// leaf convert; aes_walk.cu: the pointwise walk).
+// leaf convert in both plane orders; aes_fused.cu: the level-fused
+// expansion; aes_walk.cu: the pointwise walk).
 //
 // A column word's state is uint32_t s[128]: plane p' = 16 * bit + byte of the
 // 32 blocks packed in the word (bit-major order; canonical is 8 * byte + bit).

@@ -1,4 +1,4 @@
-// Fixed-key AES-128-MMO on bit-major planes: the compat profile's DPF PRG and
+// Fixed-key AES-128-MMO on bitsliced planes: the compat profile's DPF PRG and
 // leaf convert, written by hand for Hopper (sm_90a).
 //
 // Replaces the JAX package's TPU kernels:
@@ -8,12 +8,24 @@
 //   mmo_bm_canon_kernel  dpf_tpu/ops/aes_pallas.py::_mmo_canon_kernel_bm
 //                        (wrapper mmo_planes_pallas_bm_canon): AES_kL(S) ^ S,
 //                        bit-major in, canonical plane order out.
+//   prg_canon_kernel     dpf_tpu/ops/aes_pallas.py::_prg_kernel (wrapper
+//                        prg_planes_pallas): the PRG, canonical in and out.
+//   mmo_canon_kernel     dpf_tpu/ops/aes_pallas.py::_mmo_kernel (wrapper
+//                        mmo_planes_pallas): the leaf MMO (key L), canonical
+//                        in and out.
+//   prg_bm_il_kernel     dpf_tpu/ops/aes_pallas.py::_prg_kernel_bm_il
+//                        (wrapper prg_planes_pallas_bm_il): prg_bm_kernel's
+//                        function with both encryptions advancing together.
 //
 // Layout: uint32[128, B] (int32 carriers on the PyTorch side), plane-major and
 // contiguous.  Word S[p * B + j] holds plane p of the 32 blocks packed in
 // column word j.  Bit-major plane order is p' = 16 * bit + byte; canonical is
-// p = 8 * byte + bit.  Any B >= 1 is taken; the grid covers B with a bounds
-// check, so the root levels (B = 32 at 1024 keys) run here too.
+// p = 8 * byte + bit.  The cipher always runs on bit-major registers: a
+// canonical kernel loads canonical row 8 * byte + bit into register
+// 16 * bit + byte and stores it back the same way, which is compile-time
+// register renaming, so the canonical kernels execute the bit-major ones'
+// instructions.  Any B >= 1 is taken; the grid covers B with a bounds check,
+// so the root levels (B = 32 at 1024 keys) run here too.
 //
 // What bounds it on this card: logic-instruction issue, not memory.  One
 // AES-128-MMO on a column word (32 blocks) is 22,992 two-input gates with the
@@ -28,13 +40,19 @@
 // What the design does about that: it spends no instruction on data movement
 // inside the cipher.  One thread owns one column word and keeps its 128-word
 // state in registers for the whole cipher; ShiftRows, MixColumns' byte
-// rotation and the bit-major plane order are compile-time register renaming;
-// the S-box is the straight-line generated circuit; AddRoundKey XORs
+// rotation and the plane orders are compile-time register renaming; the
+// S-box is the straight-line generated circuit; AddRoundKey XORs
 // constant-bank masks.  Global loads and stores coalesce (neighbouring threads
 // own neighbouring column words).  The PRG writes L, then re-reads S (L1/L2
 // hot) for R instead of holding a second 128-word state, and the round loop
 // is not unrolled, which keeps the code small.  MixColumns is the direct
 // five-term wiring of each output bit, not the cheaper form the count uses.
+//
+// The interleaved PRG cannot hold both encryptions' states in one thread (the
+// one state already takes 255 registers), so it runs them in two warps of one
+// block over the same 32 column words: warp 2 w + key encrypts with `key`.
+// The key is uniform across each warp, so the round-key loads never diverge,
+// and each warp's loads and stores are whole 128-byte lines.
 //
 // The per-column functions compile as host C++ too (define __host__,
 // __device__, __constant__ empty and __forceinline__ as inline), which is how
@@ -47,32 +65,51 @@
 
 namespace {
 
-// MMO of column word j: O[:, j] = AES_key(S[:, j]) ^ S[:, j].  With
-// kCanonOut the output rows are in canonical order: canonical row
-// p = 8 * byte + bit is bit-major row 16 * bit + byte (_FROM_BM).  S is
+// Source row of bit-major register q (16 * bit + byte): itself, or with
+// kCanon the canonical row 8 * byte + bit (_TO_BM).
+template <bool kCanon>
+__host__ __device__ constexpr int row_of(int q) {
+  return kCanon ? 8 * (q & 15) + (q >> 4) : q;
+}
+
+// MMO of column word j: O[:, j] = AES_key(S[:, j]) ^ S[:, j].  With kCanonIn
+// the input rows are in canonical order, with kCanonOut the output rows:
+// output row p holds register 16 * (p & 7) + (p >> 3) (_FROM_BM).  S is
 // re-read for the final XOR; it carries no __restrict__, so the compiler
 // cannot forward the first loads and keep a second 128-word copy live.
-template <bool kCanonOut>
+template <bool kCanonOut, bool kCanonIn = false>
 __host__ __device__ __forceinline__ void mmo_column(const uint32_t* S,
                                                     uint32_t* O, size_t B,
                                                     size_t j, int key) {
   uint32_t s[128];
 #pragma unroll
-  for (int p = 0; p < 128; ++p) s[p] = S[p * B + j];
+  for (int q = 0; q < 128; ++q) s[q] = S[row_of<kCanonIn>(q) * B + j];
   aes128_encrypt_bm(s, key);
 #pragma unroll
   for (int p = 0; p < 128; ++p) {
     const int q = kCanonOut ? 16 * (p & 7) + (p >> 3) : p;
-    O[p * B + j] = s[q] ^ S[q * B + j];
+    O[p * B + j] = s[q] ^ S[row_of<kCanonIn>(q) * B + j];
   }
+}
+
+constexpr int kThreads = 128;
+
+// Thread `thread` of block `block` of prg_bm_il_kernel: the block is
+// kThreads / 64 pairs of warps, and warp 2 w + key runs `key` on the 32
+// column words of pair w.
+__host__ __device__ __forceinline__ void prg_il_thread(const uint32_t* S,
+                                                       uint32_t* L, uint32_t* R,
+                                                       size_t B, size_t block,
+                                                       int thread) {
+  const int warp = thread >> 5, key = warp & 1;
+  const size_t j = block * (kThreads / 2) + 32 * (warp >> 1) + (thread & 31);
+  if (j < B) mmo_column<false>(S, key ? R : L, B, j, key);
 }
 
 }  // namespace
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-
-constexpr int kThreads = 128;
 
 extern "C" __global__ void __launch_bounds__(kThreads)
     prg_bm_kernel(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
@@ -87,6 +124,26 @@ extern "C" __global__ void __launch_bounds__(kThreads)
   const size_t j = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (j >= static_cast<size_t>(B)) return;
   mmo_column<true>(S, O, B, j, 0);
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+    prg_canon_kernel(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
+  const size_t j = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= static_cast<size_t>(B)) return;
+#pragma unroll 1
+  for (int key = 0; key < 2; ++key) mmo_column<true, true>(S, key ? R : L, B, j, key);
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+    mmo_canon_kernel(const uint32_t* S, uint32_t* O, long long B) {
+  const size_t j = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (j >= static_cast<size_t>(B)) return;
+  mmo_column<true, true>(S, O, B, j, 0);
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads)
+    prg_bm_il_kernel(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
+  prg_il_thread(S, L, R, B, blockIdx.x, threadIdx.x);
 }
 
 static unsigned blocks_for(long long B) {
@@ -107,6 +164,29 @@ extern "C" int dpf_mmo_bm_canon(const void* S, void* O, long long B,
   mmo_bm_canon_kernel<<<blocks_for(B), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(S), static_cast<uint32_t*>(O), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dpf_prg_canon(const void* S, void* L, void* R, long long B,
+                             void* stream) {
+  prg_canon_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(S), static_cast<uint32_t*>(L),
+      static_cast<uint32_t*>(R), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dpf_mmo_canon(const void* S, void* O, long long B, void* stream) {
+  mmo_canon_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(S), static_cast<uint32_t*>(O), B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dpf_prg_bm_il(const void* S, void* L, void* R, long long B,
+                             void* stream) {
+  const unsigned blocks = static_cast<unsigned>((B + kThreads / 2 - 1) / (kThreads / 2));
+  prg_bm_il_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(S), static_cast<uint32_t*>(L),
+      static_cast<uint32_t*>(R), B);
   return static_cast<int>(cudaGetLastError());
 }
 

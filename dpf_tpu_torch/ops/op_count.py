@@ -221,6 +221,15 @@ def lop3_per_column(n_keys: int) -> int:
     return lop3_cover(dag, outs)
 
 
+def fused_prg_columns(entry_columns: int, levels: int) -> int:
+    """PRG column words of ``levels`` GGM levels grown from
+    ``entry_columns`` column words (each level doubles them): the tree's
+    work, which bounds csrc/aes_fused.cu's launches however they walk it.
+    The plane order does not change a count: the canonical kernels and the
+    interleaved PRG run the same circuit as the bit-major ones."""
+    return entry_columns * ((1 << levels) - 1)
+
+
 def walk_lop3_per_column(nu: int) -> int:
     """``LOP3`` instructions of the compat walk's ciphers on one column word
     (32 queries of one key, csrc/aes_walk.cu): a PRG (both MMOs) per level

@@ -2,11 +2,14 @@
 
 ``dpf_tpu_torch/ops/csrc/aes_mmo.cu`` keeps its per-column functions
 (S-box wiring, ShiftRows/MixColumns, round-key masks, MMO feed-forward,
-canonical output order) compilable as plain C++: a shim defines ``__host__``,
-``__device__`` and ``__constant__`` as empty, and the ``__global__`` kernels
-sit under ``__CUDACC__``.  This test builds those functions with g++ and holds
-them, bit for bit, against the plain PyTorch versions on random
-int32[128, 64] planes.  ``csrc/chacha_expand.cu`` is built the same way: its
+canonical input and output orders, the interleaved PRG's warp pairs)
+compilable as plain C++: a shim defines ``__host__``, ``__device__`` and
+``__constant__`` as empty, and the ``__global__`` kernels sit under
+``__CUDACC__``.  This test builds those functions with g++ and holds them,
+bit for bit, against the plain PyTorch versions on random int32[128, B]
+planes.  ``csrc/aes_fused.cu`` builds into the same library: every (entry
+column, path prefix) thread of a fused launch runs in turn and is held
+against ``fused_levels_planes_plain`` for g = 1 to 4.  ``csrc/chacha_expand.cu`` is built the same way: its
 per-thread work (ChaCha12 core, level step, depth-first subtree walk, leaf
 convert, ascending store) runs for every thread index of a launch and is held
 against the plain versions of ``ops/chacha_cuda.py``.  The pointwise walks
@@ -41,6 +44,7 @@ SHIM = """\
 """
 
 HOST_ENTRY = """\
+#include "aes_fused.cu"
 #include "aes_mmo.cu"
 #include "aes_walk.cu"
 
@@ -65,6 +69,36 @@ extern "C" void host_prg(const uint32_t* S, uint32_t* L, uint32_t* R, long long 
 
 extern "C" void host_mmo_canon(const uint32_t* S, uint32_t* O, long long B) {
   for (long long j = 0; j < B; ++j) mmo_column<true>(S, O, B, j, 0);
+}
+
+// The canonical-order PRG and leaf MMO (prg_canon_kernel, mmo_canon_kernel).
+extern "C" void host_prg_canon(const uint32_t* S, uint32_t* L, uint32_t* R,
+                               long long B) {
+  for (long long j = 0; j < B; ++j) {
+    mmo_column<true, true>(S, L, B, j, 0);
+    mmo_column<true, true>(S, R, B, j, 1);
+  }
+}
+
+extern "C" void host_mmo_canon_canon(const uint32_t* S, uint32_t* O, long long B) {
+  for (long long j = 0; j < B; ++j) mmo_column<true, true>(S, O, B, j, 0);
+}
+
+// Every thread of every block of one prg_bm_il_kernel launch, in turn.
+extern "C" void host_prg_il(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
+  const long long blocks = (B + kThreads / 2 - 1) / (kThreads / 2);
+  for (long long b = 0; b < blocks; ++b)
+    for (int t = 0; t < kThreads; ++t) prg_il_thread(S, L, R, B, b, t);
+}
+
+// Every (entry column, path prefix) thread of one fused launch, in turn.
+extern "C" void host_fused(const uint32_t* S, const uint32_t* T, const uint32_t* scw,
+                           const uint32_t* tl, const uint32_t* tr, uint32_t* So,
+                           uint32_t* To, long long Kp, long long W, int g) {
+  const FusedArgs a{S, T, scw, tl, tr, So, To, Kp * W, W, Kp, g};
+  uint32_t st[128];
+  for (long long j = 0; j < Kp * W; ++j)
+    for (unsigned q = 0; q < (1u << (g - 1)); ++q) fused_column<1>(a, j, q, st);
 }
 """
 
@@ -137,6 +171,13 @@ def host_lib(tmp_path_factory):
     lib.host_mmo_canon.restype = None
     lib.host_walk_bm.argtypes = [vp] * 9 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
     lib.host_walk_bm.restype = None
+    for fn in (lib.host_prg_canon, lib.host_prg_il):
+        fn.argtypes = [vp, vp, vp, ctypes.c_longlong]
+        fn.restype = None
+    lib.host_mmo_canon_canon.argtypes = [vp, vp, ctypes.c_longlong]
+    lib.host_mmo_canon_canon.restype = None
+    lib.host_fused.argtypes = [vp] * 7 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+    lib.host_fused.restype = None
     return lib
 
 
@@ -161,6 +202,44 @@ def test_mmo_canon_column_matches_plain(host_lib):
     np.testing.assert_array_equal(
         O, from_carrier(aes_cuda.mmo_planes_bm_canon_plain(to_carrier(S)))
     )
+
+
+@pytest.mark.parametrize("kind,B", [("canon", 64), ("il", 64), ("il", 33), ("il", 97)])
+def test_prg_canon_and_il_columns_match_plain(host_lib, kind, B):
+    # The interleaved kernel at widths that leave a warp pair half empty and
+    # a block's second pair empty.
+    S = _planes(seed=3 + B, B=B)
+    L, R = np.zeros_like(S), np.zeros_like(S)
+    fn, plain = ((host_lib.host_prg_canon, aes_cuda.prg_planes_canon_plain)
+                 if kind == "canon" else (host_lib.host_prg_il, aes_cuda.prg_planes_bm_il_plain))
+    fn(S.ctypes.data, L.ctypes.data, R.ctypes.data, B)
+    pL, pR = plain(to_carrier(S))
+    np.testing.assert_array_equal(L, from_carrier(pL))
+    np.testing.assert_array_equal(R, from_carrier(pR))
+
+
+def test_mmo_canon_canon_column_matches_plain(host_lib):
+    S = _planes(seed=4)
+    O = np.empty_like(S)
+    host_lib.host_mmo_canon_canon(S.ctypes.data, O.ctypes.data, S.shape[1])
+    np.testing.assert_array_equal(
+        O, from_carrier(aes_cuda.mmo_planes_canon_plain(to_carrier(S)))
+    )
+
+
+@pytest.mark.parametrize("g,Kp,W", [(1, 2, 3), (2, 1, 4), (3, 2, 1), (4, 1, 2)])
+def test_fused_column_matches_plain(host_lib, g, Kp, W):
+    # Random words everywhere, plane 0 of the CWs included: the kernel and
+    # the plain version compute the same function of any words.
+    rng = np.random.default_rng(400 + 10 * g + W)
+    words = lambda *shape: rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)  # noqa: E731
+    ops = [words(128, Kp, W), words(Kp, W), words(g, 128, Kp), words(g, Kp), words(g, Kp)]
+    So = np.zeros((128, Kp, W << g), np.uint32)
+    To = np.zeros((Kp, W << g), np.uint32)
+    host_lib.host_fused(*(_p(a) for a in ops), _p(So), _p(To), Kp, W, g)
+    pS, pT = aes_cuda.fused_levels_planes_plain(*(to_carrier(a) for a in ops))
+    np.testing.assert_array_equal(So, from_carrier(pS))
+    np.testing.assert_array_equal(To, from_carrier(pT))
 
 
 @pytest.fixture(scope="module")
