@@ -33,7 +33,10 @@ a sleep kernel, so the host's launch time between them does not count; its
 Each kernel's bound counts its instructions (``dpf_tpu_torch/ops/op_count.py``:
 LOP3 for AES-MMO, IADD/LOP3/SHF for ChaCha12; the walks: their ciphers) over
 the card's issue rate, and
-the build phase prints the built kernels' SASS instruction counts.  Every
+the build phase prints the built kernels' SASS instruction counts, and the
+registers and spills of the two PRG kernels (``prg_bm_kernel``,
+``prg_canon_kernel``: one MMO a thread), failing if either spills; phase 31
+times those two beside ``prg_bm_il_kernel`` (the same function) in turns.  Every
 check is exact: this is integer cryptography, the tolerance is zero.
 
 Any failed phase raises, so the script exits nonzero.  Without CUDA, or
@@ -153,6 +156,9 @@ OPTION_ROUTES = {
 FUSED_ROUTE = ("pallas_bm", 4, None)
 FUSED_CHECKS = ((1, 1, 1), (1, 1, 4), (3, 5, 2), (3, 5, 6))
 ODD_WIDTHS = (1, 33, 4097)
+# The PRG kernels of one MMO a thread: checked for spills at the build, and
+# timed side by side with the interleaved PRG (phase 31).
+PRG_KERNELS = ("prg_bm_kernel", "prg_canon_kernel")
 FAST_CHECKS = (
     (1, 1, 0), (1, 1, 5), (9, 3, 1), (9, 3, 5), (1, 4096, 1), (9, 4096, 5),
     (1024, 4096, 0), (1024, 128, 1), (1024, 128, 4), (1024, 1, 5), (1024, 32, 2),
@@ -561,6 +567,21 @@ def option_kernels(dev, card: str, sm_clocks_per_s: float, ka, launches) -> list
             "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
         })
+
+    # The two PRG kernels beside the interleaved PRG (row 5, the same
+    # function) on this card, in turns.
+    S = planes(128, PRG_B)
+    prgs = {"prg_bm_kernel": aes_cuda.prg_planes_bm,
+            "prg_canon_kernel": aes_cuda.prg_planes_canon,
+            "prg_bm_il_kernel": aes_cuda.prg_planes_bm_il}
+    turns = {k: [] for k in prgs}
+    for kname in [*prgs, *reversed(prgs)]:
+        turns[kname].append(kernel_ms(lambda: prgs[kname](S)))
+    bound_ms = op_count.lop3_per_column(2) * PRG_B / int_ops_per_s * 1e3
+    log(f"[time] {card}: the PRG at [128, {PRG_B}] in turns (forward, backward), bound "
+        f"{bound_ms:.4f} ms: " + "; ".join(
+            f"{k} {t[0]:.4f} / {t[1]:.4f} ms ({100 * bound_ms / min(t):.1f} %)"
+            for k, t in turns.items()))
 
     # The fused groups of one evaluation from the level-7 entry, per fuse.
     nu = dk.nu
@@ -1368,6 +1389,12 @@ def main() -> int:
     ptxas = build.ptxas_report()
     for kern, info in ptxas.items():
         log(f"[build] {kern}: {info}")
+    for kern in PRG_KERNELS:  # the redesigned PRG kernels must not spill
+        info = ptxas[kern]
+        log(f"[build] {kern}: {info['registers']} registers, "
+            f"{info['spill_store_bytes']} B spill stores, {info['spill_load_bytes']} B spill loads")
+        if info["spill_store_bytes"] or info["spill_load_bytes"]:
+            raise AssertionError(f"{kern} spills: {info}")
     for kern, ops in build.sass_report().items():
         top = ", ".join(f"{op} {n}" for op, n in ops.most_common(10))
         log(f"[build] {kern} SASS, static (loop bodies once): {sum(ops.values())} "
@@ -1388,7 +1415,7 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     for kname, kern in kernels.items():
         kern["err"] = 0
-        for B in CHECK_WIDTHS:
+        for B in (*ODD_WIDTHS, *CHECK_WIDTHS):
             S = to_carrier(rng.integers(0, 1 << 32, size=(128, B), dtype=np.uint32), dev)
             got, want = kern["wrapper"](S), kern["plain"](S)
             if kern["n_out"] == 1:

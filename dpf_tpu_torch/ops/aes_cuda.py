@@ -36,9 +36,13 @@ from . import build
 from .aes_bitslice import (
     RK_MASKS_L,
     RK_MASKS_R,
+    _mix_columns,
+    _shift_rows,
     aes128_mmo_planes,
+    from_carrier,
     permute_planes,
     prg_planes,
+    to_carrier,
 )
 
 # Bit-major plane order p' = 16*bit + byte (canonical is p = 8*byte + bit):
@@ -50,6 +54,30 @@ _FROM_BM = [16 * (p % 8) + p // 8 for p in range(128)]  # S = S_bm[_FROM_BM]
 # Both fixed-key round-key mask sets in bit-major order, uint32[2, 11, 128];
 # gen_sbox.py writes them into the kernels' __constant__ table.
 _RK_BOTH_BM = np.ascontiguousarray(np.stack([RK_MASKS_L, RK_MASKS_R])[:, :, _TO_BM])
+
+
+def sbox_output_masks(rk_masks: np.ndarray) -> np.ndarray:
+    """Round-key masks uint32[11, 128] (canonical planes) moved to the S-box
+    outputs: round 0 as it is (XORed into the input), round r = 1..9 through
+    InvMixColumns then InvShiftRows, round 10 through InvShiftRows.  XORing
+    mask r into round r's S-box outputs leaves the state after ShiftRows and
+    MixColumns as XORing round key r after them does: both are linear, and
+    a mask plane is 0 or ~0 in every lane.  MixColumns^4 and ShiftRows^4 are
+    the identity, so the inverses are the third powers."""
+    out = np.array(rk_masks, dtype=np.uint32)
+    for rnd in range(1, 11):
+        m = to_carrier(out[rnd][:, None])
+        for _ in range(3 if rnd < 10 else 0):
+            m = _mix_columns(m)
+        for _ in range(3):
+            m = _shift_rows(m)
+        out[rnd] = from_carrier(m)[:, 0]
+    return out
+
+
+# Both keys' S-box-output masks, uint32[2, 11, 128] canonical; gen_sbox.py
+# writes them into the PRG kernels' table RK_SBOX.
+_RK_SBOX = np.stack([sbox_output_masks(RK_MASKS_L), sbox_output_masks(RK_MASKS_R)])
 
 
 def prg_planes_bm_plain(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

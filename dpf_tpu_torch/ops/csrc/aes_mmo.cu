@@ -41,18 +41,40 @@
 // inside the cipher.  One thread owns one column word and keeps its 128-word
 // state in registers for the whole cipher; ShiftRows, MixColumns' byte
 // rotation and the plane orders are compile-time register renaming; the
-// S-box is the straight-line generated circuit; AddRoundKey XORs
-// constant-bank masks.  Global loads and stores coalesce (neighbouring threads
-// own neighbouring column words).  The PRG writes L, then re-reads S (L1/L2
-// hot) for R instead of holding a second 128-word state, and the round loop
-// is not unrolled, which keeps the code small.  MixColumns is the direct
-// five-term wiring of each output bit, not the cheaper form the count uses.
+// S-box is the straight-line generated circuit.  Global loads and stores
+// coalesce (neighbouring threads own neighbouring column words).  An MMO
+// writes its output, re-reading S (L1/L2 hot) for the final XOR instead of
+// holding a second 128-word state.
 //
-// The interleaved PRG cannot hold both encryptions' states in one thread (the
-// one state already takes 255 registers), so it runs them in two warps of one
-// block over the same 32 column words: warp 2 w + key encrypts with `key`.
-// The key is uniform across each warp, so the round-key loads never diverge,
-// and each warp's loads and stores are whole 128-byte lines.
+// The two PRG kernels (prg_bm_kernel, prg_canon_kernel) run one MMO a
+// thread, in two warps of one block over the same 32 column words (warp
+// 2 w + key encrypts with `key`): a warp's second reader of each line finds
+// it in L1, and one copy of the round code serves both keys, the key a
+// run-time value uniform across each warp.  Their cipher is aes_bm.cuh's
+// mmo_column_folded, which runs the LOP3 instructions of ops/op_count.py's
+// cover (generated into sbox_bp113.cuh): MixColumns through the column XOR,
+// and each round key moved to the S-box outputs, where the cover takes it as
+// an input of the output instructions (90 LOP3 a byte against 85; 1,741 a
+// round).  The block copies those masks (RK_SBOX, both keys, 11 KB) into
+// shared memory once; a warp's lanes read the same words (a broadcast), 32
+// LDS.128 a round, with no constant-bank load.  The round loop is not
+// unrolled: one round's code (~30 KB) stays in the instruction cache, and
+// the compiler keeps the state in 255 registers (two blocks of 128 threads
+// an SM) with no spill.  The loads go byte by byte, so the first S-box waits
+// for 8 rows, not 128.  What was measured against (PERF.md, PR 8): ten
+// unrolled rounds with constant masks (a template key) spill and overrun the
+// instruction cache; a copy of the code per key, or the key in blockIdx
+// (each warp then reads S from L2 or DRAM alone), is slower.
+//
+// The leaf MMO kernels (mmo_bm_canon_kernel, mmo_canon_kernel) run the round
+// loop of aes128_encrypt_bm, not unrolled, with AddRoundKey XORing
+// constant-bank masks and MixColumns as the direct five-term wiring of each
+// output bit.
+//
+// The interleaved PRG maps its threads as the PRG kernels do and runs
+// aes128_encrypt_bm with constant-bank masks: the key is uniform across
+// each warp, so the round-key loads never diverge, and each warp's loads and
+// stores are whole 128-byte lines.
 //
 // The per-column functions compile as host C++ too (define __host__,
 // __device__, __constant__ empty and __forceinline__ as inline), which is how
@@ -64,13 +86,6 @@
 #include "aes_bm.cuh"
 
 namespace {
-
-// Source row of bit-major register q (16 * bit + byte): itself, or with
-// kCanon the canonical row 8 * byte + bit (_TO_BM).
-template <bool kCanon>
-__host__ __device__ constexpr int row_of(int q) {
-  return kCanon ? 8 * (q & 15) + (q >> 4) : q;
-}
 
 // MMO of column word j: O[:, j] = AES_key(S[:, j]) ^ S[:, j].  With kCanonIn
 // the input rows are in canonical order, with kCanonOut the output rows:
@@ -106,17 +121,41 @@ __host__ __device__ __forceinline__ void prg_il_thread(const uint32_t* S,
   if (j < B) mmo_column<false>(S, key ? R : L, B, j, key);
 }
 
+// Words of RK_SBOX, both keys: the PRG kernels' shared-memory copy.
+constexpr int kRkWords = 2 * 11 * 128;
+
+// Thread `thread` of block `block` of prg_bm_kernel (prg_canon_kernel with
+// kCanon): the block is kThreads / 64 pairs of warps, and warp 2 w + key
+// runs key `key` on the 32 column words of pair w, with rk the block's copy
+// of RK_SBOX.
+template <bool kCanon>
+__host__ __device__ __forceinline__ void prg_thread(const uint32_t* S, uint32_t* L,
+                                                    uint32_t* R, size_t B, size_t block,
+                                                    int thread, const uint32_t* rk) {
+  const int warp = thread >> 5, key = warp & 1;
+  const size_t j = block * (kThreads / 2) + 32 * (warp >> 1) + (thread & 31);
+  if (j < B) mmo_column_folded<kCanon>(S, key ? R : L, B, j, rk + key * (kRkWords / 2));
+}
+
 }  // namespace
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-extern "C" __global__ void __launch_bounds__(kThreads)
+// The PRG kernels: RK_SBOX into shared memory, where every lane of a warp
+// reads the same mask (a broadcast), then one MMO a thread.
+template <bool kCanon>
+__device__ __forceinline__ void prg_block(const uint32_t* S, uint32_t* L, uint32_t* R,
+                                          long long B) {
+  __shared__ __align__(16) uint32_t rk[kRkWords];
+  for (int i = threadIdx.x; i < kRkWords; i += kThreads) rk[i] = (&RK_SBOX[0][0][0])[i];
+  __syncthreads();
+  prg_thread<kCanon>(S, L, R, B, blockIdx.x, threadIdx.x, rk);
+}
+
+extern "C" __global__ void __launch_bounds__(kThreads, 2)
     prg_bm_kernel(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
-  const size_t j = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= static_cast<size_t>(B)) return;
-#pragma unroll 1
-  for (int key = 0; key < 2; ++key) mmo_column<false>(S, key ? R : L, B, j, key);
+  prg_block<false>(S, L, R, B);
 }
 
 extern "C" __global__ void __launch_bounds__(kThreads)
@@ -126,12 +165,9 @@ extern "C" __global__ void __launch_bounds__(kThreads)
   mmo_column<true>(S, O, B, j, 0);
 }
 
-extern "C" __global__ void __launch_bounds__(kThreads)
+extern "C" __global__ void __launch_bounds__(kThreads, 2)
     prg_canon_kernel(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
-  const size_t j = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= static_cast<size_t>(B)) return;
-#pragma unroll 1
-  for (int key = 0; key < 2; ++key) mmo_column<true, true>(S, key ? R : L, B, j, key);
+  prg_block<true>(S, L, R, B);
 }
 
 extern "C" __global__ void __launch_bounds__(kThreads)
@@ -150,10 +186,16 @@ static unsigned blocks_for(long long B) {
   return static_cast<unsigned>((B + kThreads - 1) / kThreads);
 }
 
+// The two-key kernels' grid: a block per 64 column words, a pair of warps
+// for each 32 of them.
+static unsigned pair_blocks(long long B) {
+  return static_cast<unsigned>((B + kThreads / 2 - 1) / (kThreads / 2));
+}
+
 // C interface for ctypes: launch on `stream`, return cudaGetLastError().
 extern "C" int dpf_prg_bm(const void* S, void* L, void* R, long long B,
                           void* stream) {
-  prg_bm_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  prg_bm_kernel<<<pair_blocks(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(S), static_cast<uint32_t*>(L),
       static_cast<uint32_t*>(R), B);
   return static_cast<int>(cudaGetLastError());
@@ -169,7 +211,7 @@ extern "C" int dpf_mmo_bm_canon(const void* S, void* O, long long B,
 
 extern "C" int dpf_prg_canon(const void* S, void* L, void* R, long long B,
                              void* stream) {
-  prg_canon_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  prg_canon_kernel<<<pair_blocks(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(S), static_cast<uint32_t*>(L),
       static_cast<uint32_t*>(R), B);
   return static_cast<int>(cudaGetLastError());
@@ -183,8 +225,7 @@ extern "C" int dpf_mmo_canon(const void* S, void* O, long long B, void* stream) 
 
 extern "C" int dpf_prg_bm_il(const void* S, void* L, void* R, long long B,
                              void* stream) {
-  const unsigned blocks = static_cast<unsigned>((B + kThreads / 2 - 1) / (kThreads / 2));
-  prg_bm_il_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  prg_bm_il_kernel<<<pair_blocks(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(S), static_cast<uint32_t*>(L),
       static_cast<uint32_t*>(R), B);
   return static_cast<int>(cudaGetLastError());

@@ -19,11 +19,14 @@ hand:
    inputs for free.  Equal gates are merged, so the PRG's two keys share
    their first S-box layer.
 2. :func:`lop3_cover` counts the ``LOP3`` instructions of a cover of that
-   DAG.  Every value used more than once, or stored, is one instruction's
-   output; between them each fan-out-free cone is split into pieces of at
-   most three inputs, with XOR chains regrouped freely.  The cover is a
-   count that a kernel can reach, not a proven minimum: a better circuit or
-   cover would lower it.
+   DAG, and :func:`lop3_program` lists them (the PRG kernels run the lists
+   of the S-box with round-key masks on its outputs,
+   :func:`masked_sbox_circuit`, and of MixColumns, :func:`mix_column_circuit`,
+   generated into ``csrc/sbox_bp113.cuh``).  Every value used more than
+   once, or stored, is one instruction's output; between them each
+   fan-out-free cone is split into pieces of at most three inputs, with XOR
+   chains regrouped freely.  The cover is a count that a kernel can reach,
+   not a proven minimum: a better circuit or cover would lower it.
 
 :func:`evaluate` runs the DAG on numbers, which is how the tests check that
 the counted circuit computes the kernels' function.
@@ -150,9 +153,49 @@ def _operands(key: tuple) -> tuple[int, int]:
     return (a[0], b[0]) if op == _AND else (a, b)
 
 
-def lop3_cover(dag: _Dag, outs: list[_Sig]) -> int:
-    """``LOP3`` instructions (any function of three inputs) of a cover of
-    the DAG that computes ``outs``."""
+class _Fn:
+    """A function of at most three leaves (node ids, or ids of values an
+    earlier instruction made): ``tt`` bit ``i`` is its value where leaf
+    ``leaves[k]`` is bit ``k`` of ``i``."""
+
+    __slots__ = ("leaves", "tt")
+
+    def __init__(self, leaves: tuple, tt: int):
+        self.leaves, self.tt = leaves, tt
+
+    @staticmethod
+    def leaf(n: int, inv: bool = False) -> "_Fn":
+        return _Fn((n,), 0b01 if inv else 0b10)
+
+    def at(self, env: dict) -> int:
+        return (self.tt >> sum(env[x] << k for k, x in enumerate(self.leaves))) & 1
+
+    @staticmethod
+    def combine(op: str, fns: list) -> "_Fn":
+        leaves = tuple(sorted(frozenset().union(*(f.leaves for f in fns))))
+        tt = 0
+        for i in range(1 << len(leaves)):
+            env = {x: (i >> k) & 1 for k, x in enumerate(leaves)}
+            vals = [f.at(env) for f in fns]
+            v = functools.reduce(lambda u, w: u ^ w, vals) if op == _XOR else min(vals)
+            tt |= v << i
+        return _Fn(leaves, tt)
+
+    def lut(self) -> int:
+        """The LOP3 immediate with leaves[0], [1], [2] as operands a, b, c."""
+        imm = 0
+        for a, b, c in itertools.product((0, 1), repeat=3):
+            env = dict(zip(self.leaves, (a, b, c)))
+            imm |= self.at(env) << (4 * a + 2 * b + c)
+        return imm
+
+
+def _cover(dag: _Dag, outs: list[_Sig], program: list | None = None) -> int:
+    """LOP3 count of the cover of :func:`lop3_cover`; with ``program``, also
+    append its instructions ``(dst, (a, b, c), immediate)`` in an order that
+    computes each before its use (dst and operands are node ids, or ids from
+    ``len(dag.nodes)`` up for values an instruction made on the way).  An
+    output's inversion folds into the instruction that makes it."""
     fanout = Counter(o.n for o in outs)
     for key in dag.nodes:
         if key[0] != _INPUT:
@@ -160,28 +203,36 @@ def lop3_cover(dag: _Dag, outs: list[_Sig]) -> int:
     kept = {n for n, key in enumerate(dag.nodes)
             if key[0] == _INPUT or fanout[n] != 1} | {o.n for o in outs}
     fresh = itertools.count(len(dag.nodes))
+    inv_out = {o.n: o.inv for o in outs}
 
-    def reduce(items: list[frozenset]) -> tuple[frozenset, int]:
-        """Merge input sets into one of at most three inputs: each step
+    def emit(dst: int, fn: _Fn, invert: bool = False) -> None:
+        if program is not None:
+            ops = fn.leaves + (fn.leaves[0],) * (3 - len(fn.leaves))
+            program.append((dst, ops, fn.lut() ^ (0xFF if invert else 0)))
+
+    def reduce(op: str, items: list) -> tuple[list, int]:
+        """Merge items until they take at most three leaves: each step
         spends one instruction on the group of items that takes the most
-        inputs (at most three) and leaves one new input."""
+        leaves (at most three) and leaves one new leaf."""
         cost = 0
-        while len(frozenset().union(*items)) > 3:
+        while len(frozenset().union(*(f.leaves for f in items))) > 3:
             best = max(
                 (g for r in (1, 2, 3) for g in itertools.combinations(range(len(items)), r)
-                 if len(frozenset().union(*(items[i] for i in g))) <= 3
-                 and (r > 1 or len(items[g[0]]) > 1)),
-                key=lambda g: (len(frozenset().union(*(items[i] for i in g))), len(g)),
+                 if len(frozenset().union(*(items[i].leaves for i in g))) <= 3
+                 and (r > 1 or len(items[g[0]].leaves) > 1)),
+                key=lambda g: (len(frozenset().union(*(items[i].leaves for i in g))), len(g)),
             )
-            items = [x for i, x in enumerate(items) if i not in best]
-            items.append(frozenset({next(fresh)}))
+            t = next(fresh)
+            emit(t, _Fn.combine(op, [items[i] for i in best]))
+            items = [x for i, x in enumerate(items) if i not in best] + [_Fn.leaf(t)]
             cost += 1
-        return frozenset().union(*items), cost
+        return items, cost
 
-    def cone(n: int) -> tuple[frozenset, int]:
-        """Inputs and instructions of the cone below node n, left open for
-        its consumer to absorb (at most three inputs)."""
-        if dag.nodes[n][0] == _XOR:
+    def cone(n: int) -> tuple[_Fn, int]:
+        """The cone below node n as a function of at most three leaves, left
+        open for its consumer to absorb, and its instructions."""
+        op = dag.nodes[n][0]
+        if op == _XOR:
             parity: Counter = Counter()
             stack = [n]
             while stack:  # flatten XOR chains whose inner values are used once
@@ -190,27 +241,69 @@ def lop3_cover(dag: _Dag, outs: list[_Sig]) -> int:
                         stack.append(c)
                     else:
                         parity[c] ^= 1
-            operands = [c for c, odd in parity.items() if odd]
+            operands = [(c, False) for c, odd in parity.items() if odd]
         else:
-            operands = list(dict.fromkeys(_operands(dag.nodes[n])))
+            operands = list(dict.fromkeys(dag.nodes[n][1:]))
         items, cost = [], 0
-        for c in operands:
+        for c, inv in operands:
             if c in kept:
-                items.append(frozenset({c}))
+                items.append(_Fn.leaf(c, inv))
             else:
-                inputs, k = cone(c)
-                items.append(inputs)
+                f, k = cone(c)
+                items.append(_Fn(f.leaves, f.tt ^ ((1 << (1 << len(f.leaves))) - 1))
+                             if inv else f)
                 cost += k
-        inputs, k = reduce(items)
-        return inputs, cost + k
+        items, k = reduce(op, items)
+        return _Fn.combine(op, items), cost + k
 
     total = 0
-    for n in kept:
+    for n in sorted(kept):
         if dag.nodes[n][0] == _INPUT:
             continue
-        inputs, cost = cone(n)
-        total += cost + (len(inputs) > 1)  # one input: reduce()'s output, or a copy
+        f, cost = cone(n)
+        if len(f.leaves) > 1:
+            emit(n, f, inv_out.get(n, False))
+            cost += 1
+        else:  # one leaf: reduce()'s output, or a copy
+            if f.tt != 0b10 or inv_out.get(n, False):
+                raise ValueError(f"node {n} is a copy with an inversion")
+            if program is not None:
+                program.append((n, (f.leaves[0],) * 3, 0xF0))
+        total += cost
     return total
+
+
+def lop3_cover(dag: _Dag, outs: list[_Sig]) -> int:
+    """``LOP3`` instructions (any function of three inputs) of a cover of
+    the DAG that computes ``outs``."""
+    return _cover(dag, outs)
+
+
+def lop3_program(dag: _Dag, outs: list[_Sig]) -> list[tuple]:
+    """The instructions of :func:`lop3_cover`'s cover, as ``(dst, (a, b,
+    c), immediate)``; a copy (a node whose cone is one earlier value) is
+    ``(dst, (a, a, a), 0xF0)`` and is not counted."""
+    program: list = []
+    _cover(dag, outs, program)
+    return program
+
+
+def masked_sbox_circuit() -> tuple[_Dag, list[_Sig]]:
+    """The S-box with a mask XORed into each output, on inputs 0-7 (x,
+    MSB-first) and 8-15 (the masks): the PRG kernels' SubBytes
+    (csrc/aes_bm.cuh::sub_bytes_masked)."""
+    dag = _Dag()
+    v = [_Sig(dag, dag.node((_INPUT, i, None))) for i in range(16)]
+    return dag, [y ^ m for y, m in zip(sbox_bp113(v[:8]), v[8:])]
+
+
+def mix_column_circuit() -> tuple[_Dag, list[_Sig]]:
+    """MixColumns of one column in the counted form (:func:`_mix_column`) on
+    inputs 8 * row + bit, outputs in the same order."""
+    dag = _Dag()
+    col = [[_Sig(dag, dag.node((_INPUT, 8 * r + k, None))) for k in range(8)]
+           for r in range(4)]
+    return dag, [x for byte in _mix_column(col) for x in byte]
 
 
 @functools.cache

@@ -2,12 +2,16 @@
 
 ``dpf_tpu_torch/ops/csrc/aes_mmo.cu`` keeps its per-column functions
 (S-box wiring, ShiftRows/MixColumns, round-key masks, MMO feed-forward,
-canonical input and output orders, the interleaved PRG's warp pairs)
-compilable as plain C++: a shim defines ``__host__``, ``__device__`` and
-``__constant__`` as empty, and the ``__global__`` kernels sit under
-``__CUDACC__``.  This test builds those functions with g++ and holds them,
-bit for bit, against the plain PyTorch versions on random int32[128, B]
-planes.  ``csrc/aes_fused.cu`` builds into the same library: every (entry
+canonical input and output orders, the warp pairs of the PRG kernels and of
+the interleaved PRG) compilable as plain C++: a shim defines ``__host__``,
+``__device__`` and ``__constant__`` as empty, and the ``__global__`` kernels
+sit under ``__CUDACC__``.  This test builds those functions with g++ and
+holds them, bit for bit, against the plain PyTorch versions on random
+int32[128, B] planes: every (block, thread) of one launch of
+``prg_bm_kernel`` and ``prg_canon_kernel`` at widths that leave warps and
+blocks part empty; their cipher against ``op_count``'s traced circuit for
+both keys; the generated LOP3 instructions against the cover ``op_count``
+counts.  ``csrc/aes_fused.cu`` builds into the same library: every (entry
 column, path prefix) thread of a fused launch runs in turn and is held
 against ``fused_levels_planes_plain`` for g = 1 to 4.  ``csrc/chacha_expand.cu`` is built the same way: its
 per-thread work (ChaCha12 core, level step, depth-first subtree walk, leaf
@@ -33,8 +37,13 @@ import torch
 torch.set_num_threads(1)
 
 from dpf_tpu_torch.models import dcf  # noqa: E402
-from dpf_tpu_torch.ops import aes_cuda, build, chacha_cuda  # noqa: E402
-from dpf_tpu_torch.ops.aes_bitslice import from_carrier, to_carrier  # noqa: E402
+from dpf_tpu_torch.ops import aes_cuda, build, chacha_cuda, op_count  # noqa: E402
+from dpf_tpu_torch.ops.aes_bitslice import (  # noqa: E402
+    RK_MASKS_L,
+    RK_MASKS_R,
+    from_carrier,
+    to_carrier,
+)
 
 SHIM = """\
 #define __host__
@@ -82,6 +91,25 @@ extern "C" void host_prg_canon(const uint32_t* S, uint32_t* L, uint32_t* R,
 
 extern "C" void host_mmo_canon_canon(const uint32_t* S, uint32_t* O, long long B) {
   for (long long j = 0; j < B; ++j) mmo_column<true, true>(S, O, B, j, 0);
+}
+
+// Every thread of every block of one prg_bm_kernel launch (prg_canon_kernel
+// with canon), in turn, the block's shared copy of the masks being RK_SBOX.
+extern "C" void host_prg_launch(int canon, const uint32_t* S, uint32_t* L, uint32_t* R,
+                                long long B) {
+  const long long blocks = (B + kThreads / 2 - 1) / (kThreads / 2);
+  for (long long b = 0; b < blocks; ++b)
+    for (int t = 0; t < kThreads; ++t) {
+      if (canon)
+        prg_thread<true>(S, L, R, B, b, t, &RK_SBOX[0][0][0]);
+      else
+        prg_thread<false>(S, L, R, B, b, t, &RK_SBOX[0][0][0]);
+    }
+}
+
+// The PRG kernels' cipher with key `key` on canonical planes, every column.
+extern "C" void host_mmo_folded(int key, const uint32_t* S, uint32_t* O, long long B) {
+  for (long long j = 0; j < B; ++j) mmo_column_folded<true>(S, O, B, j, &RK_SBOX[key][0][0]);
 }
 
 // Every thread of every block of one prg_bm_il_kernel launch, in turn.
@@ -178,6 +206,10 @@ def host_lib(tmp_path_factory):
     lib.host_mmo_canon_canon.restype = None
     lib.host_fused.argtypes = [vp] * 7 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
     lib.host_fused.restype = None
+    lib.host_prg_launch.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_longlong]
+    lib.host_prg_launch.restype = None
+    lib.host_mmo_folded.argtypes = [ctypes.c_int, vp, vp, ctypes.c_longlong]
+    lib.host_mmo_folded.restype = None
     return lib
 
 
@@ -216,6 +248,60 @@ def test_prg_canon_and_il_columns_match_plain(host_lib, kind, B):
     pL, pR = plain(to_carrier(S))
     np.testing.assert_array_equal(L, from_carrier(pL))
     np.testing.assert_array_equal(R, from_carrier(pR))
+
+
+@pytest.mark.parametrize("kind", ["bm", "canon"])
+@pytest.mark.parametrize("B", [1, 33, 64, 97, 4097])
+def test_prg_launch_matches_plain(host_lib, kind, B):
+    # Every (block, thread) of one launch of prg_bm_kernel / prg_canon_kernel:
+    # a warp pair half empty (33, 97), a block's second pair empty (1, 33,
+    # 97, 4097), whole blocks (64).  Zeros where no thread writes would show.
+    S = _planes(seed=40 + B, B=B)
+    L, R = np.zeros_like(S), np.zeros_like(S)
+    host_lib.host_prg_launch(int(kind == "canon"), S.ctypes.data, L.ctypes.data,
+                             R.ctypes.data, B)
+    plain = aes_cuda.prg_planes_canon_plain if kind == "canon" else aes_cuda.prg_planes_bm_plain
+    pL, pR = plain(to_carrier(S))
+    np.testing.assert_array_equal(L, from_carrier(pL))
+    np.testing.assert_array_equal(R, from_carrier(pR))
+
+
+@pytest.mark.parametrize("key", [0, 1])
+def test_folded_cipher_is_the_counted_circuit(host_lib, key):
+    # The PRG kernels' cipher (masks on the S-box outputs, the generated LOP3
+    # instructions) computes the circuit that op_count traces and bounds them by.
+    S = _planes(seed=50 + key, B=16)
+    O = np.zeros_like(S)
+    host_lib.host_mmo_folded(key, S.ctypes.data, O.ctypes.data, S.shape[1])
+    dag, outs = op_count.trace_mmo(((RK_MASKS_L, RK_MASKS_R)[key],))
+    np.testing.assert_array_equal(O, op_count.evaluate(dag, outs, S))
+
+
+def _run_lop3_program(dag, program, inputs):
+    val = {n: inputs[key[1]] for n, key in enumerate(dag.nodes) if key[0] == "in"}
+    for dst, (a, b, c), imm in program:
+        out = np.zeros_like(inputs[0])
+        for i in range(8):
+            if (imm >> i) & 1:
+                out |= ((val[a] if i & 4 else ~val[a]) & (val[b] if i & 2 else ~val[b])
+                        & (val[c] if i & 1 else ~val[c]))
+        val[dst] = out
+    return val
+
+
+@pytest.mark.parametrize("name,count", [("masked_sbox_circuit", 90), ("mix_column_circuit", 75)])
+def test_lop3_program_is_the_cover(name, count):
+    # The instructions the PRG kernels run (generated into sbox_bp113.cuh)
+    # are the cover op_count counts, and compute its circuit.
+    dag, outs = getattr(op_count, name)()
+    program = op_count.lop3_program(dag, outs)
+    copies = sum((a, b, c, imm) == (a, a, a, 0xF0) for _, (a, b, c), imm in program)
+    assert len(program) - copies == op_count.lop3_cover(dag, outs) == count
+    n_in = sum(key[0] == "in" for key in dag.nodes)
+    inputs = list(_planes(seed=60, B=8)[:n_in])
+    val = _run_lop3_program(dag, program, inputs)
+    np.testing.assert_array_equal(np.stack([val[o.n] for o in outs]),
+                                  op_count.evaluate(dag, outs, np.stack(inputs)))
 
 
 def test_mmo_canon_canon_column_matches_plain(host_lib):
