@@ -34,9 +34,10 @@ Each kernel's bound counts its instructions (``dpf_tpu_torch/ops/op_count.py``:
 LOP3 for AES-MMO, IADD/LOP3/SHF for ChaCha12; the walks: their ciphers) over
 the card's issue rate, and
 the build phase prints the built kernels' SASS instruction counts, and the
-registers and spills of the two PRG kernels (``prg_bm_kernel``,
-``prg_canon_kernel``: one MMO a thread), failing if either spills; phase 31
-times those two beside ``prg_bm_il_kernel`` (the same function) in turns.  Every
+registers and spills of the kernels that run the folded cipher
+(``FOLDED_KERNELS``: the three PRG kernels, the walk and the fused levels),
+failing if any of them spills; phase 31 times the two PRG kernels beside
+``prg_bm_il_kernel`` (the same function) in turns.  Every
 check is exact: this is integer cryptography, the tolerance is zero.
 
 Any failed phase raises, so the script exits nonzero.  Without CUDA, or
@@ -156,9 +157,9 @@ OPTION_ROUTES = {
 FUSED_ROUTE = ("pallas_bm", 4, None)
 FUSED_CHECKS = ((1, 1, 1), (1, 1, 4), (3, 5, 2), (3, 5, 6))
 ODD_WIDTHS = (1, 33, 4097)
-# The PRG kernels of one MMO a thread: checked for spills at the build, and
-# timed side by side with the interleaved PRG (phase 31).
-PRG_KERNELS = ("prg_bm_kernel", "prg_canon_kernel")
+# The kernels of aes_bm.cuh's folded cipher, checked for spills at the build.
+FOLDED_KERNELS = ("prg_bm_kernel", "prg_canon_kernel", "prg_bm_il_kernel",
+                  "walk_bm_kernel", "fused_levels_bm_kernel")
 FAST_CHECKS = (
     (1, 1, 0), (1, 1, 5), (9, 3, 1), (9, 3, 5), (1, 4096, 1), (9, 4096, 5),
     (1024, 4096, 0), (1024, 128, 1), (1024, 128, 4), (1024, 1, 5), (1024, 32, 2),
@@ -1389,7 +1390,7 @@ def main() -> int:
     ptxas = build.ptxas_report()
     for kern, info in ptxas.items():
         log(f"[build] {kern}: {info}")
-    for kern in PRG_KERNELS:  # the redesigned PRG kernels must not spill
+    for kern in FOLDED_KERNELS:  # the redesigned kernels must not spill
         info = ptxas[kern]
         log(f"[build] {kern}: {info['registers']} registers, "
             f"{info['spill_store_bytes']} B spill stores, {info['spill_load_bytes']} B spill loads")

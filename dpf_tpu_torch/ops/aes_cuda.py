@@ -13,8 +13,9 @@ each beside its plain PyTorch version:
   (``prg_canon_kernel``, ``mmo_canon_kernel``, replacing ``_prg_kernel`` and
   ``_mmo_kernel``): the same PRG and leaf MMO on canonical planes in and out;
 - :func:`prg_planes_bm_il` (``prg_bm_il_kernel``, replacing
-  ``_prg_kernel_bm_il``): the bit-major PRG with both encryptions advancing
-  together, one warp each;
+  ``_prg_kernel_bm_il``): the bit-major PRG, which the TPU kernel computed
+  with both encryptions advancing together; here ``prg_bm_kernel``'s block,
+  one warp a key;
 - :func:`fused_levels_planes` (``csrc/aes_fused.cu::fused_levels_bm_kernel``,
   replacing ``_fused_levels_kernel_bm``): up to :data:`FUSE_MAX_LEVELS` GGM
   levels in one launch, children stored in ascending node order;
@@ -191,8 +192,9 @@ mmo_planes_canon.launches = 0
 
 def prg_planes_bm_il(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Interleaved PRG on BIT-MAJOR planes: :func:`prg_planes_bm`'s output,
-    with the two encryptions run side by side by two warps.  Contract of
-    ``dpf_tpu.ops.aes_pallas.prg_planes_pallas_bm_il``, for any B."""
+    by the same block of two warps, one a key, from a kernel of its own.
+    Contract of ``dpf_tpu.ops.aes_pallas.prg_planes_pallas_bm_il``, for any
+    B."""
     if S.device.type == "cpu":
         return prg_planes_bm_il_plain(S)
     _check_planes(S)

@@ -6,14 +6,22 @@
 // A column word's state is uint32_t s[128]: plane p' = 16 * bit + byte of the
 // 32 blocks packed in the word (bit-major order; canonical is 8 * byte + bit).
 // ShiftRows, MixColumns' byte rotation and the plane order are compile-time
-// register renaming, the S-box is the generated straight-line circuit, and
-// AddRoundKey XORs the constant-bank masks RK_BM (both fixed keys).
+// register renaming.
 //
-// mmo_column_folded is the same cipher as the LOP3 instructions of
-// ops/op_count.py's cover, for the PRG kernels of aes_mmo.cu: MixColumns
-// goes through the column XOR, and each round key is moved to the S-box
-// outputs (RK_SBOX), where the cover takes it as an input of the output
-// instructions (5 LOP3 more a byte than the S-box alone).
+// Two forms of the one cipher.  The folded form (folded_load, folded_rounds,
+// mmo_column_folded) is what every PRG of the compat profile runs: the PRG
+// kernels and the interleaved PRG of aes_mmo.cu, the fused levels of
+// aes_fused.cu and the walk of aes_walk.cu.  It runs the LOP3 instructions
+// of ops/op_count.py's cover: MixColumns goes through the column XOR, and
+// each round key is moved to the S-box outputs (RK_SBOX, which a kernel
+// copies into shared memory with copy_rk_sbox), where the cover takes it as
+// an input of the output instructions (5 LOP3 more a byte than the S-box
+// alone); the key is a run-time pointer, so one copy of the round code
+// serves both keys.  The old form (aes128_encrypt_bm: the generated S-box
+// without masks, the five-term MixColumns, AddRoundKey from the
+// constant-bank masks RK_BM) serves only the two leaf MMO kernels of
+// aes_mmo.cu (mmo_bm_canon_kernel, mmo_canon_kernel, through mmo_column);
+// it goes when they move to the folded form.
 //
 // Compiles as host C++ too (define __host__, __device__, __constant__ empty
 // and __forceinline__ as inline): tests/port/test_torch_kernel_host.py.
@@ -161,11 +169,51 @@ __host__ __device__ __forceinline__ size_t opaque(size_t x) {
   return x;
 }
 
+// Words of RK_SBOX, both keys: the kernels' shared-memory copy; key `key`'s
+// eleven rounds start at rk + key * kRkWords / 2.
+constexpr int kRkWords = 2 * 11 * 128;
+
+// Thread `thread` of `threads` copies its share of RK_SBOX into rk (the
+// block's shared copy; a barrier follows before any thread reads it).
+__host__ __device__ __forceinline__ void copy_rk_sbox(uint32_t* rk, int thread,
+                                                      int threads) {
+  for (int i = thread; i < kRkWords; i += threads) rk[i] = (&RK_SBOX[0][0][0])[i];
+}
+
+// The folded cipher's input: row row_of<kCanon>(q) of column word j of S
+// (plane-major, B words a plane) into register q, with round 0's key (rk,
+// one key's RK_SBOX[key]) XORed in.  Byte by byte: the first S-box waits for
+// 8 rows, not 128.
+template <bool kCanon>
+__host__ __device__ __forceinline__ void folded_load(uint32_t s[128], const uint32_t* S,
+                                                     size_t B, size_t j,
+                                                     const uint32_t* rk) {
+#pragma unroll
+  for (int b = 0; b < 16; ++b)
+#pragma unroll
+    for (int bit = 0; bit < 8; ++bit) {
+      const int q = pl(bit, b);
+      s[q] = S[row_of<kCanon>(q) * B + j] ^ rk[row_of<true>(q)];
+    }
+}
+
+// Rounds 1-10 of the folded cipher on the state folded_load gave, with the
+// key whose S-box-output masks are rk[11][128].  One round per turn of a
+// loop that is not unrolled, so the code is one round's and the key a
+// run-time value; MixColumns through the column XOR.
+__host__ __device__ __forceinline__ void folded_rounds(uint32_t s[128],
+                                                       const uint32_t* rk) {
+#pragma unroll 1
+  for (int rnd = 1; rnd <= 10; ++rnd) {
+    sub_bytes_masked(s, rk + 128 * rnd);
+    shift_rows_bm(s);
+    if (rnd < 10) mix_columns_cover(s);
+  }
+}
+
 // MMO of column word j, in and out in one plane order (canonical with
 // kCanon: register q is row row_of(q)): O = AES(S) ^ S with the key whose
-// S-box-output masks are rk[11][128] (RK_SBOX[key]).  One round per turn
-// of a loop that is not unrolled, so the code is one round's and the key a
-// run-time value; MixColumns through the column XOR.  S is re-read for the
+// S-box-output masks are rk[11][128] (RK_SBOX[key]).  S is re-read for the
 // final XOR rather than held.
 template <bool kCanon>
 __host__ __device__ __forceinline__ void mmo_column_folded(const uint32_t* S,
@@ -173,19 +221,8 @@ __host__ __device__ __forceinline__ void mmo_column_folded(const uint32_t* S,
                                                            size_t j,
                                                            const uint32_t* rk) {
   uint32_t s[128];
-#pragma unroll
-  for (int b = 0; b < 16; ++b)  // byte by byte: the first S-box waits for 8 rows
-#pragma unroll
-    for (int bit = 0; bit < 8; ++bit) {
-      const int q = pl(bit, b);
-      s[q] = S[row_of<kCanon>(q) * B + j] ^ rk[row_of<true>(q)];
-    }
-#pragma unroll 1
-  for (int rnd = 1; rnd <= 10; ++rnd) {
-    sub_bytes_masked(s, rk + 128 * rnd);
-    shift_rows_bm(s);
-    if (rnd < 10) mix_columns_cover(s);
-  }
+  folded_load<kCanon>(s, S, B, j, rk);
+  folded_rounds(s, rk);
   j = opaque(j);
 #pragma unroll
   for (int q = 0; q < 128; ++q) {

@@ -15,7 +15,8 @@
 //                        in and out.
 //   prg_bm_il_kernel     dpf_tpu/ops/aes_pallas.py::_prg_kernel_bm_il
 //                        (wrapper prg_planes_pallas_bm_il): prg_bm_kernel's
-//                        function with both encryptions advancing together.
+//                        function, which the TPU kernel computed with both
+//                        encryptions advancing together.
 //
 // Layout: uint32[128, B] (int32 carriers on the PyTorch side), plane-major and
 // contiguous.  Word S[p * B + j] holds plane p of the 32 blocks packed in
@@ -46,10 +47,10 @@
 // writes its output, re-reading S (L1/L2 hot) for the final XOR instead of
 // holding a second 128-word state.
 //
-// The two PRG kernels (prg_bm_kernel, prg_canon_kernel) run one MMO a
-// thread, in two warps of one block over the same 32 column words (warp
-// 2 w + key encrypts with `key`): a warp's second reader of each line finds
-// it in L1, and one copy of the round code serves both keys, the key a
+// The PRG kernels (prg_bm_kernel, prg_canon_kernel, prg_bm_il_kernel) run
+// one MMO a thread, in two warps of one block over the same 32 column words
+// (warp 2 w + key encrypts with `key`): a warp's second reader of each line
+// finds it in L1, and one copy of the round code serves both keys, the key a
 // run-time value uniform across each warp.  Their cipher is aes_bm.cuh's
 // mmo_column_folded, which runs the LOP3 instructions of ops/op_count.py's
 // cover (generated into sbox_bp113.cuh): MixColumns through the column XOR,
@@ -71,10 +72,10 @@
 // constant-bank masks and MixColumns as the direct five-term wiring of each
 // output bit.
 //
-// The interleaved PRG maps its threads as the PRG kernels do and runs
-// aes128_encrypt_bm with constant-bank masks: the key is uniform across
-// each warp, so the round-key loads never diverge, and each warp's loads and
-// stores are whole 128-byte lines.
+// The interleaved PRG computes prg_bm_kernel's function, so it launches the
+// same block (prg_block<false>) from its own __global__: on this card the
+// TPU kernel's interleaving of the two encryptions is what the warp pair
+// already does, one key a warp.
 //
 // The per-column functions compile as host C++ too (define __host__,
 // __device__, __constant__ empty and __forceinline__ as inline), which is how
@@ -109,21 +110,6 @@ __host__ __device__ __forceinline__ void mmo_column(const uint32_t* S,
 
 constexpr int kThreads = 128;
 
-// Thread `thread` of block `block` of prg_bm_il_kernel: the block is
-// kThreads / 64 pairs of warps, and warp 2 w + key runs `key` on the 32
-// column words of pair w.
-__host__ __device__ __forceinline__ void prg_il_thread(const uint32_t* S,
-                                                       uint32_t* L, uint32_t* R,
-                                                       size_t B, size_t block,
-                                                       int thread) {
-  const int warp = thread >> 5, key = warp & 1;
-  const size_t j = block * (kThreads / 2) + 32 * (warp >> 1) + (thread & 31);
-  if (j < B) mmo_column<false>(S, key ? R : L, B, j, key);
-}
-
-// Words of RK_SBOX, both keys: the PRG kernels' shared-memory copy.
-constexpr int kRkWords = 2 * 11 * 128;
-
 // Thread `thread` of block `block` of prg_bm_kernel (prg_canon_kernel with
 // kCanon): the block is kThreads / 64 pairs of warps, and warp 2 w + key
 // runs key `key` on the 32 column words of pair w, with rk the block's copy
@@ -148,7 +134,7 @@ template <bool kCanon>
 __device__ __forceinline__ void prg_block(const uint32_t* S, uint32_t* L, uint32_t* R,
                                           long long B) {
   __shared__ __align__(16) uint32_t rk[kRkWords];
-  for (int i = threadIdx.x; i < kRkWords; i += kThreads) rk[i] = (&RK_SBOX[0][0][0])[i];
+  copy_rk_sbox(rk, threadIdx.x, kThreads);
   __syncthreads();
   prg_thread<kCanon>(S, L, R, B, blockIdx.x, threadIdx.x, rk);
 }
@@ -177,9 +163,9 @@ extern "C" __global__ void __launch_bounds__(kThreads)
   mmo_column<true, true>(S, O, B, j, 0);
 }
 
-extern "C" __global__ void __launch_bounds__(kThreads)
+extern "C" __global__ void __launch_bounds__(kThreads, 2)
     prg_bm_il_kernel(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
-  prg_il_thread(S, L, R, B, blockIdx.x, threadIdx.x);
+  prg_block<false>(S, L, R, B);
 }
 
 static unsigned blocks_for(long long B) {

@@ -18,7 +18,8 @@ per-thread work (ChaCha12 core, level step, depth-first subtree walk, leaf
 convert, ascending store) runs for every thread index of a launch and is held
 against the plain versions of ``ops/chacha_cuda.py``.  The pointwise walks
 (``csrc/aes_walk.cu``, ``csrc/chacha_walk.cu``) build into the same two
-libraries: every column or lane of a launch runs in turn and is held against
+libraries: every block of a compat walk launch runs its phases in the
+kernel's barrier order, every lane of a ChaCha walk in turn, held against
 ``eval_points_walk_planes_plain`` and ``walk_plain`` (walk order, plane
 orders, the 64-bit index split, the level-grouping masks); the DCF lane of
 ``csrc/chacha_walk.cu`` against ``walk_dcf_plain`` on random words and against
@@ -57,16 +58,47 @@ HOST_ENTRY = """\
 #include "aes_mmo.cu"
 #include "aes_walk.cu"
 
-// Every column (key k, query word j) of one walk launch, in turn.
+// Every block (key k, tile of 32 query words) of one walk launch, in turn,
+// each in the kernel's barrier order: the set-up (left warp); per level,
+// phase 1 of both warps, then phase 2 (the right warp's combine, the left
+// warp's staging of the next CWs); then the leaf (left warp).  s holds each thread's registers across the barriers.
 extern "C" void host_walk_bm(const uint32_t* seeds, const uint32_t* t,
                              const uint32_t* scw, const uint32_t* tl,
                              const uint32_t* tr, const uint32_t* fcw,
                              const uint32_t* pw, const uint32_t* sel, uint32_t* out,
                              long long K, long long qp, int nu) {
   const WalkArgs a{seeds, t, scw, tl, tr, fcw, pw, sel, out, K, qp, nu};
-  uint32_t st[128], nx[128];
+  WalkShared sh;
+  static uint32_t s[2][32][128];
+  uint32_t go[2][32], tc[2][32];
+  WalkThread x[2][32];
+  copy_rk_sbox(sh.rk, 0, 1);
   for (long long k = 0; k < K; ++k)
-    for (long long j = 0; j < qp; ++j) walk_column<1>(a, k, j, st, nx);
+    for (long long tile = 0; tile < (qp + 31) / 32; ++tile) {
+      for (int key = 0; key < 2; ++key)
+        for (int lane = 0; lane < 32; ++lane) {
+          const size_t j = tile * 32 + lane;
+          x[key][lane] = {key, lane, static_cast<size_t>(k), j,
+                          j < static_cast<size_t>(qp) ? j : qp - 1};
+        }
+      for (int lane = 0; lane < 32; ++lane) walk_init(a, x[0][lane], sh);
+      for (int i = 0; i < nu; ++i) {
+        for (int key = 0; key < 2; ++key)
+          for (int lane = 0; lane < 32; ++lane) {
+            folded_rounds(s[key][lane], walk_load(s[key][lane], sh, x[key][lane]));
+            tc[key][lane] = walk_child(a, i, x[key][lane], s[key][lane], sh, go[key][lane]);
+          }
+        for (int lane = 0; lane < 32; ++lane) {
+          walk_combine(x[1][lane], s[1][lane], go[1][lane], tc[1][lane], sh);
+          walk_stage(a, i + 1, x[0][lane], sh);
+        }
+      }
+      for (int lane = 0; lane < 32; ++lane) {
+        walk_stage_select(a, x[0][lane], sh);
+        folded_rounds(s[0][lane], walk_load(s[0][lane], sh, x[0][lane]));
+        walk_leaf(a, x[0][lane], s[0][lane], sh);
+      }
+    }
 }
 
 extern "C" void host_prg(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
@@ -112,21 +144,38 @@ extern "C" void host_mmo_folded(int key, const uint32_t* S, uint32_t* O, long lo
   for (long long j = 0; j < B; ++j) mmo_column_folded<true>(S, O, B, j, &RK_SBOX[key][0][0]);
 }
 
-// Every thread of every block of one prg_bm_il_kernel launch, in turn.
+// Every thread of every block of one prg_bm_il_kernel launch (prg_block<false>,
+// as prg_bm_kernel), in turn, with the block's shared copy of RK_SBOX.
 extern "C" void host_prg_il(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
+  static uint32_t rk[kRkWords];
+  copy_rk_sbox(rk, 0, 1);
   const long long blocks = (B + kThreads / 2 - 1) / (kThreads / 2);
   for (long long b = 0; b < blocks; ++b)
-    for (int t = 0; t < kThreads; ++t) prg_il_thread(S, L, R, B, b, t);
+    for (int t = 0; t < kThreads; ++t) prg_thread<false>(S, L, R, B, b, t, rk);
 }
 
-// Every (entry column, path prefix) thread of one fused launch, in turn.
+// Every thread of every block (kFusedThreads entry columns, path prefix q)
+// of one fused launch, in turn, as the kernel runs it: the block's shared
+// copy of RK_SBOX, each thread's walked node at its slot of the block's st.
 extern "C" void host_fused(const uint32_t* S, const uint32_t* T, const uint32_t* scw,
                            const uint32_t* tl, const uint32_t* tr, uint32_t* So,
                            uint32_t* To, long long Kp, long long W, int g) {
   const FusedArgs a{S, T, scw, tl, tr, So, To, Kp * W, W, Kp, g};
-  uint32_t st[128];
-  for (long long j = 0; j < Kp * W; ++j)
-    for (unsigned q = 0; q < (1u << (g - 1)); ++q) fused_column<1>(a, j, q, st);
+  static FusedShared sh;
+  copy_rk_sbox(sh.rk, 0, 1);
+  const size_t N = Kp * W, blocks = (N + kFusedThreads - 1) / kFusedThreads;
+  for (size_t b = 0; b < blocks; ++b)
+    for (unsigned q = 0; q < (1u << (g - 1)); ++q)
+      for (int t = 0; t < kFusedThreads; ++t) {
+        const size_t j = b * kFusedThreads + t;
+        if (j >= N) continue;
+        uint32_t tj = T[j];
+        for (int step = 0; step <= g; ++step) {
+          uint32_t s[128];
+          folded_rounds(s, fused_load<kFusedThreads>(a, j, q, step, sh.st + t, sh.rk, s));
+          fused_store<kFusedThreads>(a, j, q, step, sh.st + t, &tj, s);
+        }
+      }
 }
 """
 
@@ -313,11 +362,8 @@ def test_mmo_canon_canon_column_matches_plain(host_lib):
     )
 
 
-@pytest.mark.parametrize("g,Kp,W", [(1, 2, 3), (2, 1, 4), (3, 2, 1), (4, 1, 2)])
-def test_fused_column_matches_plain(host_lib, g, Kp, W):
-    # Random words everywhere, plane 0 of the CWs included: the kernel and
-    # the plain version compute the same function of any words.
-    rng = np.random.default_rng(400 + 10 * g + W)
+def _check_fused(host_lib, g, Kp, W, seed):
+    rng = np.random.default_rng(seed)
     words = lambda *shape: rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)  # noqa: E731
     ops = [words(128, Kp, W), words(Kp, W), words(g, 128, Kp), words(g, Kp), words(g, Kp)]
     So = np.zeros((128, Kp, W << g), np.uint32)
@@ -326,6 +372,21 @@ def test_fused_column_matches_plain(host_lib, g, Kp, W):
     pS, pT = aes_cuda.fused_levels_planes_plain(*(to_carrier(a) for a in ops))
     np.testing.assert_array_equal(So, from_carrier(pS))
     np.testing.assert_array_equal(To, from_carrier(pT))
+
+
+@pytest.mark.parametrize("g,Kp,W", [(1, 2, 3), (2, 1, 4), (3, 2, 1), (4, 1, 2)])
+def test_fused_column_matches_plain(host_lib, g, Kp, W):
+    # Random words everywhere, plane 0 of the CWs included: the kernel and
+    # the plain version compute the same function of any words.
+    _check_fused(host_lib, g, Kp, W, seed=400 + 10 * g + W)
+
+
+@pytest.mark.parametrize("g,Kp,W", [(4, 2, 3), (4, 1, 17), (2, 1, 65), (3, 3, 25)])
+def test_fused_launch_matches_plain(host_lib, g, Kp, W):
+    # Whole launches at odd widths: four levels from W odd, and Kp * W past
+    # one block of 64 entry columns and not a multiple of it (the second
+    # block's threads beyond N store nothing).
+    _check_fused(host_lib, g, Kp, W, seed=500 + 10 * g + W)
 
 
 @pytest.fixture(scope="module")
@@ -402,18 +463,41 @@ def test_chacha_tail_strided_views_match_plain(chacha_lib):
     assert not out[:, : a << levels].any() and not out[:, b << levels :].any()
 
 
-@pytest.mark.parametrize("K,qp,nu", [(1, 1, 0), (3, 2, 1), (2, 3, 3)])
-def test_compat_walk_column_matches_plain(host_lib, K, qp, nu):
-    # Random words everywhere (not only lane masks and one-hot selects): the
-    # kernel and the plain version compute the same function of any words.
-    rng = np.random.default_rng(100 + 10 * K + nu)
+def _one_hot_select(rng, K, qp):
+    """sel [128, K, qp]: each query's leaf bit one random canonical plane
+    (random words would OR to ~0 whatever the walk computed)."""
+    pick = rng.integers(0, 128, size=(32, K, qp))
+    sel = np.zeros((128, K, qp), np.uint32)
+    k, j = np.indices((K, qp))
+    for lane in range(32):
+        sel[pick[lane], k, j] |= np.uint32(1 << lane)
+    return sel
+
+
+def _check_walk(host_lib, K, qp, nu, seed):
+    rng = np.random.default_rng(seed)
     words = lambda *shape: rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)  # noqa: E731
     ops = [words(128, K), words(K), words(nu, 128, K), words(nu, K), words(nu, K),
-           words(128, K), words(nu, K, qp), words(128, K, qp)]
+           words(128, K), words(nu, K, qp), _one_hot_select(rng, K, qp)]
     out = np.zeros((K, qp), np.uint32)
     host_lib.host_walk_bm(*(_p(a) for a in ops), _p(out), K, qp, nu)
     want = aes_cuda.eval_points_walk_planes_plain(*(to_carrier(a) for a in ops), nu)
     np.testing.assert_array_equal(out, from_carrier(want))
+
+
+@pytest.mark.parametrize("K,qp,nu", [(1, 1, 0), (3, 2, 1), (2, 3, 3)])
+def test_compat_walk_column_matches_plain(host_lib, K, qp, nu):
+    # Random words everywhere but the one-hot select (not only lane masks):
+    # the kernel and the plain version compute the same function of any words.
+    _check_walk(host_lib, K, qp, nu, seed=100 + 10 * K + nu)
+
+
+@pytest.mark.parametrize("K,qp,nu", [(3, 33, 2), (1, 45, 0), (5, 32, 1), (2, 70, 1)])
+def test_compat_walk_launch_matches_plain(host_lib, K, qp, nu):
+    # Whole launches in barrier order: qp not a multiple of 32 (a tile's
+    # columns beyond qp reach every barrier and store nothing), nu = 0 (the
+    # leaf alone), K odd, three tiles of one key.
+    _check_walk(host_lib, K, qp, nu, seed=600 + 10 * K + qp + nu)
 
 
 def _walk_operands(rng, Q, K, log_n, grouped):
