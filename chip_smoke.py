@@ -22,9 +22,14 @@ every route of ``OPTION_ROUTES`` at config 2 traced and timed through
 ``eval_full_device(dk, backend=..., fuse=...)`` (phase 29), then driven
 through ``eval_full_batch(kb, backend=..., fuse=...)``, each counted and
 held to the default route's bytes and the spec (phase 28); the kernels of
-those options (``prg_canon_kernel``, ``mmo_canon_kernel``,
+those options (``prg_canon_kernel``, ``leaf_words_canon_kernel``,
 ``prg_bm_il_kernel``, ``fused_levels_bm_kernel``) are held against their
-plain versions and timed last (phases 30-31).  It checks each kernel
+plain versions and timed last (phases 30-31).  The leaf kernels
+(``leaf_words_bm_kernel``, ``leaf_words_canon_kernel``: the leaf MMO, the
+final CW and the per-key words in one launch) are held against their plain
+versions in both input layouts (level-major, and the fused route's
+node-minor), at odd widths and the main path's leaf level, and writing two
+subtrees into one output at leaf offsets as the chunked route does.  It checks each kernel
 path against the plain path and the chunked split against the unchunked
 one (and the fast profile's deep-tree and whole-tree routes), and times the paths and each kernel with CUDA events
 (a kernel's ``ms`` in the kernels line: its runs queued back to back behind
@@ -35,8 +40,8 @@ LOP3 for AES-MMO, IADD/LOP3/SHF for ChaCha12; the walks: their ciphers) over
 the card's issue rate, and
 the build phase prints the built kernels' SASS instruction counts, and the
 registers and spills of the kernels that run the folded cipher
-(``FOLDED_KERNELS``: the three PRG kernels, the walk and the fused levels),
-failing if any of them spills; phase 31 times the two PRG kernels beside
+(``FOLDED_KERNELS``: the three PRG kernels, the two leaf kernels, the walk
+and the fused levels), failing if any of them spills; phase 31 times the two PRG kernels beside
 ``prg_bm_il_kernel`` (the same function) in turns.  Every
 check is exact: this is integer cryptography, the tolerance is zero.
 
@@ -137,20 +142,20 @@ FAST_WALK_LOG_N, FAST_WALK_K, FAST_WALK_Q = (9, 14, 34), (9, 128, 256), 100
 # 0-6 per level, then _fuse_schedule's groups of levels 7-12; the chunked
 # route (2^17 words a plane) one prefix level and two subtrees of 12.
 OPTION_ROUTES = {
-    ("pallas", None, None): {"prg_canon_kernel": 13, "mmo_canon_kernel": 1},
-    ("xla", None, None): {"prg_canon_kernel": 13, "mmo_canon_kernel": 1},
-    ("pallas_bm_il", None, None): {"prg_bm_il_kernel": 13, "mmo_bm_canon_kernel": 1},
+    ("pallas", None, None): {"prg_canon_kernel": 13, "leaf_words_canon_kernel": 1},
+    ("xla", None, None): {"prg_canon_kernel": 13, "leaf_words_canon_kernel": 1},
+    ("pallas_bm_il", None, None): {"prg_bm_il_kernel": 13, "leaf_words_bm_kernel": 1},
     ("pallas_bm", 1, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 6,
-                             "mmo_bm_canon_kernel": 1},
+                             "leaf_words_bm_kernel": 1},
     ("pallas_bm", 2, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 3,
-                             "mmo_bm_canon_kernel": 1},
+                             "leaf_words_bm_kernel": 1},
     ("pallas_bm", 3, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 2,
-                             "mmo_bm_canon_kernel": 1},
+                             "leaf_words_bm_kernel": 1},
     ("pallas_bm", 4, None): {"prg_bm_kernel": 7, "fused_levels_bm_kernel": 2,
-                             "mmo_bm_canon_kernel": 1},
+                             "leaf_words_bm_kernel": 1},
     ("pallas_bm_il", 2, None): {"prg_bm_il_kernel": 7, "fused_levels_bm_kernel": 3,
-                                "mmo_bm_canon_kernel": 1},
-    ("pallas", None, 1 << 17): {"prg_canon_kernel": 25, "mmo_canon_kernel": 2},
+                                "leaf_words_bm_kernel": 1},
+    ("pallas", None, 1 << 17): {"prg_canon_kernel": 25, "leaf_words_canon_kernel": 2},
 }
 # The route whose launches and fused groups the kernels line gives for
 # fused_levels_bm_kernel; the odd shapes of its checks (Kp, W, g).
@@ -159,7 +164,14 @@ FUSED_CHECKS = ((1, 1, 1), (1, 1, 4), (3, 5, 2), (3, 5, 6))
 ODD_WIDTHS = (1, 33, 4097)
 # The kernels of aes_bm.cuh's folded cipher, checked for spills at the build.
 FOLDED_KERNELS = ("prg_bm_kernel", "prg_canon_kernel", "prg_bm_il_kernel",
-                  "walk_bm_kernel", "fused_levels_bm_kernel")
+                  "leaf_words_bm_kernel", "leaf_words_canon_kernel", "walk_bm_kernel",
+                  "fused_levels_bm_kernel")
+# The leaf kernels' checks, (W, Kp) in both input layouts: odd widths, more
+# key words than a block's columns, and the main path's leaf level; then two subtrees written into one output at leaf
+# offsets 0 and W, at odd widths and at the chunked route's subtree
+# (max_plane_words 2^17: 2^12 leaves).
+LEAF_CHECKS = ((1, 1), (33, 1), (4097, 1), (5, 3), (3, 100), (1 << (LOG_N - 7), K // 32))
+LEAF_CHUNK_CHECKS = ((33, 3), (1 << (LOG_N - 8), K // 32))
 FAST_CHECKS = (
     (1, 1, 0), (1, 1, 5), (9, 3, 1), (9, 3, 5), (1, 4096, 1), (9, 4096, 5),
     (1024, 4096, 0), (1024, 128, 1), (1024, 128, 4), (1024, 1, 5), (1024, 32, 2),
@@ -323,13 +335,20 @@ def device_breakdowns(fns: list, expects: list[str], attempts: int = 3) -> list[
     raise AssertionError(f"torch.profiler did not record {expects} in {attempts} traces")
 
 
+def kernel_launches(busy: dict[str, tuple[float, int]]) -> int:
+    """The kernel launches among a trace's device events (not its copies
+    and memsets)."""
+    return sum(n for name, (_, n) in busy.items() if not name.startswith(("Memcpy", "Memset")))
+
+
 def log_breakdown(card: str, entry: str, fn, expect: str) -> None:
     """Print :func:`device_breakdown` of one run of ``fn``."""
     wall_ms, span_ms, busy = device_breakdown(fn, expect)
     total = sum(us for us, _ in busy.values()) / 1e3
     n_events = sum(count for _, count in busy.values())
     log(f"[profile] {card}: {entry} traced: wall {wall_ms:.3f} ms, device span "
-        f"{span_ms:.3f} ms, busy {total:.3f} ms in {n_events} device events, idle "
+        f"{span_ms:.3f} ms, busy {total:.3f} ms in {n_events} device events "
+        f"({kernel_launches(busy)} kernel launches), idle "
         f"{100 - 100 * total / span_ms:.1f} % of the span, "
         f"{100 - 100 * total / wall_ms:.1f} % of the wall")
     for kname, (us, count) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:15]:
@@ -357,9 +376,9 @@ def _wrappers() -> dict:
 
     return {
         "prg_bm_kernel": aes_cuda.prg_planes_bm,
-        "mmo_bm_canon_kernel": aes_cuda.mmo_planes_bm_canon,
+        "leaf_words_bm_kernel": aes_cuda.convert_leaves_bm,
         "prg_canon_kernel": aes_cuda.prg_planes_canon,
-        "mmo_canon_kernel": aes_cuda.mmo_planes_canon,
+        "leaf_words_canon_kernel": aes_cuda.convert_leaves_canon,
         "prg_bm_il_kernel": aes_cuda.prg_planes_bm_il,
         "fused_levels_bm_kernel": aes_cuda.fused_levels_planes,
         "fused_levels_kernel": chacha_cuda.fused_levels,
@@ -410,6 +429,81 @@ def fast_operands(rng, k: int, w: int, levels: int, dev):
     scw[:, :, 0] &= ~np.uint32(1)
     tcw = words(k, levels, 2) & np.uint32(1)
     return tuple(to_carrier(a, dev) for a in (st, scw, tcw, words(k, 16)))
+
+
+def leaf_operands(rng, W: int, kp: int, node_minor: bool, dev):
+    """Random leaf planes, control words and final CW planes [128, 1, Kp] on
+    ``dev``: S [128, W, Kp] and T [W, Kp], or with ``node_minor`` S
+    [128, Kp, W] and T [Kp, W].  Random words, not only lane masks: the
+    kernel and the plain version compute the same function of any words."""
+    from dpf_tpu_torch.ops.aes_bitslice import to_carrier
+
+    def words(*shape):
+        return to_carrier(rng.integers(0, 1 << 32, size=shape, dtype=np.uint32), dev)
+
+    cols = (kp, W) if node_minor else (W, kp)
+    return words(128, *cols), words(*cols), words(128, 1, kp)
+
+
+def leaf_checks(kname: str, wrapper, plain, dev) -> int:
+    """A leaf kernel against its plain version on the card: every (W, Kp) of
+    LEAF_CHECKS in both input layouts, then LEAF_CHUNK_CHECKS' two subtrees
+    into one output at leaf offsets 0 and W -> the largest error (0)."""
+    rng = np.random.default_rng(2025)
+    err = 0
+    for W, kp in LEAF_CHECKS:
+        for node_minor in (False, True):
+            ops = leaf_operands(rng, W, kp, node_minor, dev)
+            err = max(err, check_equal(kname, wrapper(*ops, node_minor=node_minor),
+                                       plain(*ops, node_minor=node_minor),
+                                       f"W={W} Kp={kp} node_minor={node_minor}"))
+    for W, kp in LEAF_CHUNK_CHECKS:
+        for node_minor in (False, True):
+            got = torch.zeros((32 * kp, 2 * W + 1, 4), dtype=torch.int32, device=dev)
+            want = torch.zeros_like(got)
+            for half in range(2):
+                ops = leaf_operands(rng, W, kp, node_minor, dev)
+                wrapper(*ops, node_minor=node_minor, out=got, leaf_offset=half * W)
+                plain(*ops, node_minor=node_minor, out=want, leaf_offset=half * W)
+            err = max(err, check_equal(kname, got, want, f"two subtrees of W={W} at leaf "
+                                       f"offsets 0, {W} of {2 * W + 1}, Kp={kp}, "
+                                       f"node_minor={node_minor}"))
+    log(f"[kernel] {kname} == plain at (W, Kp) in {LEAF_CHECKS}, both input layouts, and "
+        f"writing two subtrees at leaf offsets for (W, Kp) in {LEAF_CHUNK_CHECKS}")
+    return err
+
+
+def leaf_row(card: str, kname: str, wrapper, plain, replaces: str, launches: int, err: int,
+             int_ops_per_s: float, dev) -> dict:
+    """A leaf kernel timed at the main path's leaf level ([128, 2^13, 32]
+    level-major; the node-minor layout, the fused route's, beside it) next
+    to its bound and its plain version -> its row of the kernels line."""
+    from dpf_tpu_torch.ops import op_count
+
+    W, kp = 1 << (LOG_N - 7), K // 32
+    rng = np.random.default_rng(2026)
+    S, T, fcw = leaf_operands(rng, W, kp, False, dev)
+    k_ms, e_ms = kernel_ms(lambda: wrapper(S, T, fcw)), cuda_ms(lambda: wrapper(S, T, fcw))
+    p_ms = cuda_ms(lambda: plain(S, T, fcw), warmup=1, reps=3)
+    Sn, Tn, fcwn = leaf_operands(rng, W, kp, True, dev)
+    n_ms = kernel_ms(lambda: wrapper(Sn, Tn, fcwn, node_minor=True))
+    n = W * kp
+    ops = op_count.leaf_words_per_column() * n
+    nbytes = 4 * (128 * n + n + 128 * kp) + 16 * 32 * n  # planes, t, fcw in; words out
+    ops_ms, bytes_ms = ops / int_ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"[time] {card}: {kname} at [128, {W}, {kp}]: kernel {k_ms:.4f} ms (queued; "
+        f"{e_ms:.4f} ms one call at a time; node-minor [128, {kp}, {W}] {n_ms:.4f} ms), "
+        f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({ops:.3e} instructions: "
+        f"{op_count.lop3_per_column(1)} MMO LOP3 + {sum(op_count.LEAF_EPILOGUE.values())} "
+        f"epilogue a column -> {ops_ms:.4f} ms, {nbytes:.3e} B -> {bytes_ms:.4f} ms), "
+        f"{100 * bound_ms / k_ms:.1f} % of the bound")
+    return {
+        "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": k_ms, "event_ms": e_ms,
+        "plain_ms": p_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -483,13 +577,14 @@ def option_times(dev, card: str, ka) -> None:
         log(f"[options time] {card}: eval_full_device {route_name(route)}: {dev_ms:.4f} "
             f"ms ({leaves / dev_ms / 1e6:.2f} Gleaves/s), host launch time {enq_ms:.3f} "
             f"ms; traced: wall {wall_ms:.3f} ms, busy {total:.3f} ms in "
-            f"{sum(n for _, n in busy.values())} device events, idle "
+            f"{sum(n for _, n in busy.values())} device events ({kernel_launches(busy)} kernel "
+            f"launches), idle "
             f"{100 - 100 * total / span_ms:.1f} % of the span; {top}")
 
 
 def option_kernels(dev, card: str, sm_clocks_per_s: float, ka, launches) -> list[dict]:
-    """Phases 30-31: the four new kernels against their plain versions on
-    the card (at their config-2 shapes and odd widths), then their times
+    """Phases 30-31: the options' four kernels against their plain versions
+    on the card (at their config-2 shapes and odd widths), then their times
     beside their bounds and plain versions -> their rows of the kernels
     line."""
     from dpf_tpu_torch.models import dpf as mdpf
@@ -504,8 +599,6 @@ def option_kernels(dev, card: str, sm_clocks_per_s: float, ka, launches) -> list
     flat = {  # name: (wrapper, plain, TPU kernel, MMOs a column, outputs, B)
         "prg_canon_kernel": (aes_cuda.prg_planes_canon, aes_cuda.prg_planes_canon_plain,
                              "dpf_tpu/ops/aes_pallas.py:121", 2, 2, PRG_B),
-        "mmo_canon_kernel": (aes_cuda.mmo_planes_canon, aes_cuda.mmo_planes_canon_plain,
-                             "dpf_tpu/ops/aes_pallas.py:128", 1, 1, LEAF_B),
         "prg_bm_il_kernel": (aes_cuda.prg_planes_bm_il, aes_cuda.prg_planes_bm_il_plain,
                              "dpf_tpu/ops/aes_pallas.py:237", 2, 2, PRG_B),
     }
@@ -518,6 +611,9 @@ def option_kernels(dev, card: str, sm_clocks_per_s: float, ka, launches) -> list
             for g_, w_ in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
                 err[kname] = max(err[kname], check_equal(kname, g_, w_, f"[128, {b}]"))
         log(f"[kernel] {kname} == plain at [128, B] for B in {(*ODD_WIDTHS, B)}")
+    err["leaf_words_canon_kernel"] = leaf_checks(
+        "leaf_words_canon_kernel", aes_cuda.convert_leaves_canon,
+        aes_cuda.convert_leaves_canon_plain, dev)
 
     # The fused groups at the config-2 entry: level 7's [128, 32, 128] state.
     dk = mdpf.DeviceKeys(ka, dev)
@@ -568,6 +664,10 @@ def option_kernels(dev, card: str, sm_clocks_per_s: float, ka, launches) -> list
             "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
         })
+    rows.append(leaf_row(card, "leaf_words_canon_kernel", aes_cuda.convert_leaves_canon,
+                         aes_cuda.convert_leaves_canon_plain, "dpf_tpu/ops/aes_pallas.py:128",
+                         launches[("pallas", None, None)]["leaf_words_canon_kernel"],
+                         err["leaf_words_canon_kernel"], int_ops_per_s, dev))
 
     # The two PRG kernels beside the interleaved PRG (row 5, the same
     # function) on this card, in turns.
@@ -1325,7 +1425,7 @@ def gate_checked(dev, card: str, sm_clocks_per_s: float, head: dict) -> list[dic
     n = GE_LOG_N
     for profile, gen, dk_cls, full, expect in (
         ("compat", P.gen_batch, mdpf.DeviceKeys, mdpf.eval_full_device,
-         {"prg_bm_kernel": 2 * (n - 7), "mmo_bm_canon_kernel": 2}),
+         {"prg_bm_kernel": 2 * (n - 7), "leaf_words_bm_kernel": 2}),
         ("fast", fast.gen_batch, mdc.DeviceKeysFast, mdc.eval_full_device,
          {"fused_levels_kernel": 4, "expand_tail_kernel": 2}),
     ):
@@ -1407,11 +1507,6 @@ def main() -> int:
             wrapper=aes_cuda.prg_planes_bm, plain=aes_cuda.prg_planes_bm_plain,
             replaces="dpf_tpu/ops/aes_pallas.py:213", n_mmo=2, n_out=2, B=PRG_B,
         ),
-        "mmo_bm_canon_kernel": dict(
-            wrapper=aes_cuda.mmo_planes_bm_canon,
-            plain=aes_cuda.mmo_planes_bm_canon_plain,
-            replaces="dpf_tpu/ops/aes_pallas.py:253", n_mmo=1, n_out=1, B=LEAF_B,
-        ),
     }
     rng = np.random.default_rng(2024)
     for kname, kern in kernels.items():
@@ -1419,14 +1514,14 @@ def main() -> int:
         for B in (*ODD_WIDTHS, *CHECK_WIDTHS):
             S = to_carrier(rng.integers(0, 1 << 32, size=(128, B), dtype=np.uint32), dev)
             got, want = kern["wrapper"](S), kern["plain"](S)
-            if kern["n_out"] == 1:
-                got, want = (got,), (want,)
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 if not torch.equal(g, w):
                     raise AssertionError(f"{kname} != plain at B={B}")
                 kern["err"] = max(kern["err"], max_abs_err(g, w))
             log(f"[kernel] {kname} == plain at [128, {B}]")
+    leaf_err = leaf_checks("leaf_words_bm_kernel", aes_cuda.convert_leaves_bm,
+                           aes_cuda.convert_leaves_bm_plain, dev)
 
     # 4. The golden vectors, through gen -> EvalFull on the card.
     for log_n, alpha, seed, key_hex, out_sha in VECTORS:
@@ -1450,7 +1545,7 @@ def main() -> int:
     nu = LOG_N - 7
     log(f"[main] n={LOG_N} K={K}: launches over 2 evaluations {launches}")
     if launches != {**{n: 0 for n in launches}, "prg_bm_kernel": 2 * nu,
-                    "mmo_bm_canon_kernel": 2}:
+                    "leaf_words_bm_kernel": 2}:
         raise AssertionError(f"expected {nu} PRG + 1 leaf launch per evaluation")
     if out_a.shape != (K, 1 << (LOG_N - 3)) or out_a.dtype != np.uint8:
         raise AssertionError(f"output shape {out_a.shape} {out_a.dtype}")
@@ -1511,6 +1606,9 @@ def main() -> int:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
         })
+    rows_out.append(leaf_row(card, "leaf_words_bm_kernel", aes_cuda.convert_leaves_bm,
+                             aes_cuda.convert_leaves_bm_plain, "dpf_tpu/ops/aes_pallas.py:253",
+                             launches["leaf_words_bm_kernel"], leaf_err, int_ops_per_s, dev))
 
     # 9. Where the time goes: one traced run of each entry point (not in the
     #    times above), and the host's time to launch eval_full_device's work.

@@ -7,11 +7,12 @@ whose PRG and leaf convert run as hand-written CUDA kernels
 (``ops/csrc/aes_mmo.cu``), and to pointwise evaluation, whose whole walk is
 one kernel (``ops/csrc/aes_walk.cu``).  Full-domain evaluation takes the
 JAX package's kernel options: ``backend="pallas_bm"`` (the default; bit-major
-level state, ``prg_bm_kernel`` and ``mmo_bm_canon_kernel`` replacing
-``_prg_kernel_bm`` and ``_mmo_canon_kernel_bm``), ``"pallas_bm_il"``
-(``prg_bm_il_kernel`` for ``_prg_kernel_bm_il``), ``"pallas"`` or ``"xla"``
-(canonical order, ``prg_canon_kernel`` and ``mmo_canon_kernel`` for
-``_prg_kernel`` and ``_mmo_kernel``), and ``fuse=g`` on a bit-major backend
+level state, ``prg_bm_kernel`` and ``leaf_words_bm_kernel`` replacing
+``_prg_kernel_bm`` and ``_mmo_canon_kernel_bm`` with the final CW and the
+unpack to per-key words after it), ``"pallas_bm_il"`` (``prg_bm_il_kernel``
+for ``_prg_kernel_bm_il``), ``"pallas"`` or ``"xla"`` (canonical order,
+``prg_canon_kernel`` and ``leaf_words_canon_kernel`` for ``_prg_kernel`` and
+``_mmo_kernel``), and ``fuse=g`` on a bit-major backend
 (``ops/csrc/aes_fused.cu::fused_levels_bm_kernel`` for
 ``_fused_levels_kernel_bm``), all with the same bytes.  The same paths for
 the ChaCha fast

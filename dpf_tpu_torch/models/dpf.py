@@ -16,7 +16,8 @@ default) and ``"pallas_bm_il"`` hold the level state in bit-major plane order
 canonical order; ``"pallas"`` and ``"xla"`` keep it canonical throughout.
 ``fuse=g`` on a bit-major backend runs the levels from ``_FUSE_FLOOR`` down
 as groups of at most g levels, each one ``fused_levels_planes`` launch.  The
-PRG, the leaf MMO and the fused levels are the CUDA kernels of
+PRG, the leaf convert (the leaf MMO, the final CW and the unpack to per-key
+words, one launch) and the fused levels are the CUDA kernels of
 ``ops/aes_cuda.py`` on the card and their plain versions on the CPU; the glue
 around them is plain PyTorch, as it is XLA outside Pallas in the JAX package.
 
@@ -45,19 +46,18 @@ from ..ops.aes_bitslice import (
     from_carrier,
     pack_padded_keys,
     to_carrier,
-    unpack_planes,
 )
 from ..ops.aes_cuda import (
     _TO_BM,
     _fold,
+    convert_leaves_bm,
+    convert_leaves_bm_plain,
+    convert_leaves_canon,
+    convert_leaves_canon_plain,
     eval_points_walk_planes,
     eval_points_walk_planes_plain,
     fused_levels_planes,
     fused_levels_planes_plain,
-    mmo_planes_bm_canon,
-    mmo_planes_bm_canon_plain,
-    mmo_planes_canon,
-    mmo_planes_canon_plain,
     prg_planes_bm,
     prg_planes_bm_il,
     prg_planes_bm_il_plain,
@@ -71,23 +71,23 @@ from ..ops.aes_cuda import (
 # the [128, W, Kp] tensor is 256 MB; a few live at once during a step.
 MAX_PLANE_WORDS = 1 << 19
 
-# backend -> impl -> (PRG, leaf MMO).  impl None: the wrappers, which launch
+# backend -> impl -> (PRG, leaf convert).  impl None: the wrappers, which launch
 # the kernels on CUDA tensors and run the plain versions on CPU tensors.
 # "plain": the plain versions on any device (chip_smoke.py holds the kernels
 # against them).  "xla" is the JAX package's canonical-order XLA expression
 # of the same function, so it runs the canonical kernels here.
 _CANON = {
-    None: (prg_planes_canon, mmo_planes_canon),
-    "plain": (prg_planes_canon_plain, mmo_planes_canon_plain),
+    None: (prg_planes_canon, convert_leaves_canon),
+    "plain": (prg_planes_canon_plain, convert_leaves_canon_plain),
 }
 _IMPLS = {
     "pallas_bm": {
-        None: (prg_planes_bm, mmo_planes_bm_canon),
-        "plain": (prg_planes_bm_plain, mmo_planes_bm_canon_plain),
+        None: (prg_planes_bm, convert_leaves_bm),
+        "plain": (prg_planes_bm_plain, convert_leaves_bm_plain),
     },
     "pallas_bm_il": {
-        None: (prg_planes_bm_il, mmo_planes_bm_canon),
-        "plain": (prg_planes_bm_il_plain, mmo_planes_bm_canon_plain),
+        None: (prg_planes_bm_il, convert_leaves_bm),
+        "plain": (prg_planes_bm_il_plain, convert_leaves_bm_plain),
     },
     "pallas": _CANON,
     "xla": _CANON,
@@ -199,13 +199,6 @@ def _level_step(S, T, cw_plane, tl_w, tr_w, prg):
     return S, T
 
 
-def _convert_leaves(S, T, fcw_planes, mmo):
-    """Leaf conversion + final CW: -> per-key output words int32[K, W, 4]."""
-    C = mmo(S.reshape(128, -1)).view(S.shape)
-    C ^= fcw_planes & T[None, :, :]
-    return unpack_planes(C)
-
-
 def _to_bm(seed_planes, scw_planes):
     """Canonical -> bit-major plane order for the level-state inputs: the
     [128, 1, Kp] seeds and the [nu, 128, Kp] CWs (the leaf convert emits
@@ -270,16 +263,6 @@ def _fused_groups(S, T, scw_planes, tl_w, tr_w, first, groups, fused):
     return Sf, Tf
 
 
-def _convert_leaves_fused(Sf, Tf, fcw_planes, mmo):
-    """Leaf conversion + final CW from the node-minor layout: the MMO is
-    elementwise over column words, so it runs on the node-minor flattening
-    directly; the final CW is per key ([128, Kp, 1]); one transpose back
-    to [128, W, Kp] for the output words."""
-    C = mmo(Sf.reshape(128, -1)).view(Sf.shape)
-    C ^= fcw_planes.transpose(1, 2) & Tf[None]
-    return unpack_planes(C.transpose(1, 2))
-
-
 def eval_full_device(
     dk: DeviceKeys,
     max_plane_words: int = MAX_PLANE_WORDS,
@@ -305,7 +288,7 @@ def eval_full_device(
     backend = _resolve_backend(backend)
     if impl not in _IMPLS[backend]:
         raise ValueError(f"impl must be one of {list(_IMPLS[backend])}, got {impl!r}")
-    prg, mmo = _IMPLS[backend][impl]
+    prg, convert = _IMPLS[backend][impl]
     nu = dk.nu
     kp = dk.k_padded // 32
     total = (1 << nu) * kp
@@ -319,11 +302,12 @@ def eval_full_device(
             first, groups = sched
             S, T = _expand(first, 0, seeds, dk.t_words, scw, tl, tr, prg)
             Sf, Tf = _fused_groups(S, T, scw, tl, tr, first, groups, _FUSED_IMPLS[impl])
-            return _convert_leaves_fused(Sf, Tf, dk.fcw_planes, mmo)
+            return convert(Sf, Tf, dk.fcw_planes, node_minor=True)
         S, T = _expand(nu, 0, seeds, dk.t_words, scw, tl, tr, prg)
-        return _convert_leaves(S, T, dk.fcw_planes, mmo)
+        return convert(S, T, dk.fcw_planes)
     # Chunked: expand a prefix of c levels, then finish each of the 2^c
-    # independent subtrees.  Minimal split: c = ceil(log2(ceil(total / max))).
+    # independent subtrees, each leaf convert writing straight into its
+    # columns of the output.  Minimal split: c = ceil(log2(ceil(total / max))).
     n_chunks = -(-total // max_plane_words)
     c = min((n_chunks - 1).bit_length(), nu)
     S, T = _expand(c, 0, seeds, dk.t_words, scw, tl, tr, prg)
@@ -335,7 +319,7 @@ def eval_full_device(
         Sj, Tj = _expand(
             nu - c, c, S[:, j : j + 1].contiguous(), T[j : j + 1], scw, tl, tr, prg
         )
-        out[:, j * wc : (j + 1) * wc] = _convert_leaves(Sj, Tj, dk.fcw_planes, mmo)
+        convert(Sj, Tj, dk.fcw_planes, out=out, leaf_offset=j * wc)
     return out
 
 

@@ -122,18 +122,18 @@ def aes128_encrypt_planes(S: torch.Tensor, rk_masks: np.ndarray) -> torch.Tensor
     rk = to_carrier(rk_masks, S.device).reshape(11, 128, -1, 1)
     n = rk.shape[2]
 
-    def add_round_key(S, rnd):
+    def xor_round_key(S, rnd):
         return (S.reshape(128, n, -1) ^ rk[rnd]).reshape(128, -1)
 
-    S = add_round_key(S, 0)
+    S = xor_round_key(S, 0)
     for rnd in range(1, 10):
         S = _sub_bytes(S)
         S = _shift_rows(S)
         S = _mix_columns(S)
-        S = add_round_key(S, rnd)
+        S = xor_round_key(S, rnd)
     S = _sub_bytes(S)
     S = _shift_rows(S)
-    return add_round_key(S, 10)
+    return xor_round_key(S, 10)
 
 
 def aes128_mmo_planes(S: torch.Tensor, rk_masks: np.ndarray) -> torch.Tensor:

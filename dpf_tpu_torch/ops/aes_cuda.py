@@ -6,12 +6,15 @@ each beside its plain PyTorch version:
 - :func:`prg_planes_bm` (``csrc/aes_mmo.cu::prg_bm_kernel``, replacing
   ``_prg_kernel_bm``): the DPF PRG, both fixed-key MMOs, bit-major planes in
   and out;
-- :func:`mmo_planes_bm_canon` (``mmo_bm_canon_kernel``, replacing
-  ``_mmo_canon_kernel_bm``): the leaf convert, bit-major in, canonical plane
-  order out;
-- :func:`prg_planes_canon` and :func:`mmo_planes_canon`
-  (``prg_canon_kernel``, ``mmo_canon_kernel``, replacing ``_prg_kernel`` and
-  ``_mmo_kernel``): the same PRG and leaf MMO on canonical planes in and out;
+- :func:`convert_leaves_bm` (``leaf_words_bm_kernel``, replacing
+  ``_mmo_canon_kernel_bm`` and the two steps after it in
+  ``dpf_tpu/models/dpf.py::_convert_leaves`` / ``_convert_leaves_fused``):
+  the leaf convert from bit-major planes, the final CW under t, and the
+  per-key output words;
+- :func:`prg_planes_canon` and :func:`convert_leaves_canon`
+  (``prg_canon_kernel``, ``leaf_words_canon_kernel``, replacing
+  ``_prg_kernel`` and ``_mmo_kernel``): the same PRG and leaf convert from
+  canonical planes;
 - :func:`prg_planes_bm_il` (``prg_bm_il_kernel``, replacing
   ``_prg_kernel_bm_il``): the bit-major PRG, which the TPU kernel computed
   with both encryptions advancing together; here ``prg_bm_kernel``'s block,
@@ -44,6 +47,7 @@ from .aes_bitslice import (
     permute_planes,
     prg_planes,
     to_carrier,
+    unpack_planes,
 )
 
 # Bit-major plane order p' = 16*bit + byte (canonical is p = 8*byte + bit):
@@ -52,9 +56,6 @@ from .aes_bitslice import (
 # both orders, so the evaluator's t-bit handling is order-agnostic.
 _TO_BM = [8 * (p % 16) + p // 16 for p in range(128)]  # S_bm = S[_TO_BM]
 _FROM_BM = [16 * (p % 8) + p // 8 for p in range(128)]  # S = S_bm[_FROM_BM]
-# Both fixed-key round-key mask sets in bit-major order, uint32[2, 11, 128];
-# gen_sbox.py writes them into the kernels' __constant__ table.
-_RK_BOTH_BM = np.ascontiguousarray(np.stack([RK_MASKS_L, RK_MASKS_R])[:, :, _TO_BM])
 
 
 def sbox_output_masks(rk_masks: np.ndarray) -> np.ndarray:
@@ -77,7 +78,7 @@ def sbox_output_masks(rk_masks: np.ndarray) -> np.ndarray:
 
 
 # Both keys' S-box-output masks, uint32[2, 11, 128] canonical; gen_sbox.py
-# writes them into the PRG kernels' table RK_SBOX.
+# writes them into the kernels' table RK_SBOX.
 _RK_SBOX = np.stack([sbox_output_masks(RK_MASKS_L), sbox_output_masks(RK_MASKS_R)])
 
 
@@ -89,7 +90,8 @@ def prg_planes_bm_plain(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def mmo_planes_bm_canon_plain(S: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`mmo_planes_bm_canon`."""
+    """The leaf MMO (key L) on BIT-MAJOR planes [128, B] -> CANONICAL-order
+    planes: the first step of :func:`convert_leaves_bm_plain`."""
     return aes128_mmo_planes(permute_planes(S, _FROM_BM), RK_MASKS_L)
 
 
@@ -99,7 +101,8 @@ def prg_planes_canon_plain(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
 
 
 def mmo_planes_canon_plain(S: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`mmo_planes_canon`."""
+    """The leaf MMO (key L) on CANONICAL-order planes [128, B], canonical
+    out: the first step of :func:`convert_leaves_canon_plain`."""
     return aes128_mmo_planes(S, RK_MASKS_L)
 
 
@@ -145,21 +148,6 @@ def prg_planes_bm(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 prg_planes_bm.launches = 0
 
 
-def mmo_planes_bm_canon(S: torch.Tensor) -> torch.Tensor:
-    """Leaf-convert MMO on BIT-MAJOR planes -> CANONICAL-order planes.
-    Contract of ``dpf_tpu.ops.aes_pallas.mmo_planes_pallas_bm_canon``."""
-    if S.device.type == "cpu":
-        return mmo_planes_bm_canon_plain(S)
-    _check_planes(S)
-    O = torch.empty_like(S)
-    _launch(build.load("aes_mmo").dpf_mmo_bm_canon, "mmo_bm_canon_kernel", S, (O,))
-    mmo_planes_bm_canon.launches += 1
-    return O
-
-
-mmo_planes_bm_canon.launches = 0
-
-
 def prg_planes_canon(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """PRG on CANONICAL-order planes int32[128, B] -> (L, R), canonical.
     Contract of ``dpf_tpu.ops.aes_pallas.prg_planes_pallas``, for any B."""
@@ -173,21 +161,6 @@ def prg_planes_canon(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 prg_planes_canon.launches = 0
-
-
-def mmo_planes_canon(S: torch.Tensor) -> torch.Tensor:
-    """Leaf-convert MMO (key L) on CANONICAL-order planes, canonical out.
-    Contract of ``dpf_tpu.ops.aes_pallas.mmo_planes_pallas``, for any B."""
-    if S.device.type == "cpu":
-        return mmo_planes_canon_plain(S)
-    _check_planes(S)
-    O = torch.empty_like(S)
-    _launch(build.load("aes_mmo").dpf_mmo_canon, "mmo_canon_kernel", S, (O,))
-    mmo_planes_canon.launches += 1
-    return O
-
-
-mmo_planes_canon.launches = 0
 
 
 def prg_planes_bm_il(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -205,6 +178,112 @@ def prg_planes_bm_il(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 prg_planes_bm_il.launches = 0
+
+
+def _leaf_words_plain(mmo, S, T, fcw_planes, node_minor, out, leaf_offset):
+    """The leaf convert as the JAX package runs it: ``mmo`` on the planes,
+    the final CW under t, ``unpack_planes``; then, given ``out``, the words
+    into its leaves ``leaf_offset ..``."""
+    C = mmo(S.reshape(128, -1)).view(S.shape)
+    if node_minor:
+        C ^= fcw_planes.transpose(1, 2) & T[None]
+        C = C.transpose(1, 2)
+    else:
+        C ^= fcw_planes & T[None]
+    words = unpack_planes(C)
+    if out is None:
+        return words
+    out[:, leaf_offset : leaf_offset + words.shape[1]] = words
+    return out
+
+
+def convert_leaves_bm_plain(S, T, fcw_planes, *, node_minor=False, out=None, leaf_offset=0):
+    """Plain version of :func:`convert_leaves_bm`."""
+    return _leaf_words_plain(mmo_planes_bm_canon_plain, S, T, fcw_planes, node_minor, out,
+                             leaf_offset)
+
+
+def convert_leaves_canon_plain(S, T, fcw_planes, *, node_minor=False, out=None,
+                               leaf_offset=0):
+    """Plain version of :func:`convert_leaves_canon`."""
+    return _leaf_words_plain(mmo_planes_canon_plain, S, T, fcw_planes, node_minor, out,
+                             leaf_offset)
+
+
+def _leaf_words(cfn: str, kernel: str, S, T, fcw_planes, node_minor, out, leaf_offset):
+    """Check the leaf convert's operands and launch ``kernel`` -> out."""
+    if S.device.type != "cuda":
+        raise ValueError(f"expected a CUDA or CPU tensor, got {S.device}")
+    if S.dim() != 3 or S.shape[0] != 128:
+        raise ValueError(f"S: expected [128, W, Kp] or [128, Kp, W], got {list(S.shape)}")
+    kp, W = S.shape[1:] if node_minor else reversed(S.shape[1:])
+    if kp < 1 or W < 1:
+        raise ValueError(f"leaf convert: needs W, Kp >= 1; got {W}, {kp}")
+    dev = S.device
+    for name, x, shape in (("S", S, S.shape), ("T", T, S.shape[1:]),
+                           ("fcw_planes", fcw_planes, (128, 1, kp))):
+        _check_walk_operand(name, x, shape, dev)
+    if out is None:
+        if leaf_offset:
+            raise ValueError("leaf_offset needs out")
+        out = torch.empty((32 * kp, W, 4), dtype=torch.int32, device=dev)
+    else:
+        if out.dim() != 3 or out.shape[0] != 32 * kp or out.shape[2] != 4:
+            raise ValueError(f"out: expected [{32 * kp}, leaves, 4], got {list(out.shape)}")
+        _check_walk_operand("out", out, out.shape, dev)
+        if out.data_ptr() % 16:
+            raise ValueError("out: the kernel stores 16 B a key and leaf; needs 16 B alignment")
+        if not 0 <= leaf_offset <= out.shape[1] - W:
+            raise ValueError(f"out: leaves {leaf_offset} .. {leaf_offset + W} of "
+                             f"{out.shape[1]}")
+    lib = build.load("aes_mmo")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, cfn)(S.data_ptr(), T.data_ptr(), fcw_planes.data_ptr(),
+                               out.data_ptr(), W, kp, int(node_minor), out.shape[1],
+                               leaf_offset, stream)
+    if rc:
+        msg = lib.dpf_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")
+    return out
+
+
+def convert_leaves_bm(S, T, fcw_planes, *, node_minor=False, out=None, leaf_offset=0):
+    """The leaf convert from BIT-MAJOR leaf planes: AES_kL(S) ^ S in
+    canonical order, the final CW under t, unpacked to per-key words.
+    S int32[128, W, Kp] with T [W, Kp] (the level-major state), or with
+    ``node_minor`` S [128, Kp, W] and T [Kp, W] (the fused route's);
+    fcw_planes [128, 1, Kp], canonical -> int32[32 Kp, W, 4], or, given
+    ``out`` [32 Kp, leaves, 4], the words written into its leaves
+    ``leaf_offset .. leaf_offset + W`` and ``out`` returned.  What the
+    reference's ``_convert_leaves`` (``_convert_leaves_fused`` for the
+    node-minor layout) returns with backend ``pallas_bm``, for any W, Kp
+    >= 1."""
+    if S.device.type == "cpu":
+        return convert_leaves_bm_plain(S, T, fcw_planes, node_minor=node_minor, out=out,
+                                       leaf_offset=leaf_offset)
+    out = _leaf_words("dpf_leaf_words_bm", "leaf_words_bm_kernel", S, T, fcw_planes,
+                      node_minor, out, leaf_offset)
+    convert_leaves_bm.launches += 1
+    return out
+
+
+convert_leaves_bm.launches = 0
+
+
+def convert_leaves_canon(S, T, fcw_planes, *, node_minor=False, out=None, leaf_offset=0):
+    """:func:`convert_leaves_bm` from CANONICAL-order leaf planes: the
+    reference's ``_convert_leaves`` with backends ``pallas`` and ``xla``."""
+    if S.device.type == "cpu":
+        return convert_leaves_canon_plain(S, T, fcw_planes, node_minor=node_minor,
+                                          out=out, leaf_offset=leaf_offset)
+    out = _leaf_words("dpf_leaf_words_canon", "leaf_words_canon_kernel", S, T, fcw_planes,
+                      node_minor, out, leaf_offset)
+    convert_leaves_canon.launches += 1
+    return out
+
+
+convert_leaves_canon.launches = 0
 
 
 # Levels one fused launch runs at most (aes_fused.cu's kFusedMaxG): its walk

@@ -46,10 +46,11 @@ _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "aes_mmo": {
         "dpf_prg_bm": ([_vp, _vp, _vp, _ll, _vp], _int),
-        "dpf_mmo_bm_canon": ([_vp, _vp, _ll, _vp], _int),
         "dpf_prg_canon": ([_vp, _vp, _vp, _ll, _vp], _int),
-        "dpf_mmo_canon": ([_vp, _vp, _ll, _vp], _int),
         "dpf_prg_bm_il": ([_vp, _vp, _vp, _ll, _vp], _int),
+        # S, T, fcw, out, W, Kp, node_minor, leaves, leaf_off, stream
+        "dpf_leaf_words_bm": ([_vp] * 4 + [_ll, _ll, _int, _ll, _ll, _vp], _int),
+        "dpf_leaf_words_canon": ([_vp] * 4 + [_ll, _ll, _int, _ll, _ll, _vp], _int),
         "dpf_error_string": ([_int], ctypes.c_char_p),
     },
     "aes_fused": {

@@ -8,20 +8,13 @@
 // ShiftRows, MixColumns' byte rotation and the plane order are compile-time
 // register renaming.
 //
-// Two forms of the one cipher.  The folded form (folded_load, folded_rounds,
-// mmo_column_folded) is what every PRG of the compat profile runs: the PRG
-// kernels and the interleaved PRG of aes_mmo.cu, the fused levels of
-// aes_fused.cu and the walk of aes_walk.cu.  It runs the LOP3 instructions
-// of ops/op_count.py's cover: MixColumns goes through the column XOR, and
-// each round key is moved to the S-box outputs (RK_SBOX, which a kernel
-// copies into shared memory with copy_rk_sbox), where the cover takes it as
-// an input of the output instructions (5 LOP3 more a byte than the S-box
-// alone); the key is a run-time pointer, so one copy of the round code
-// serves both keys.  The old form (aes128_encrypt_bm: the generated S-box
-// without masks, the five-term MixColumns, AddRoundKey from the
-// constant-bank masks RK_BM) serves only the two leaf MMO kernels of
-// aes_mmo.cu (mmo_bm_canon_kernel, mmo_canon_kernel, through mmo_column);
-// it goes when they move to the folded form.
+// The cipher (folded_load, folded_rounds, mmo_column_folded) runs the LOP3
+// instructions of ops/op_count.py's cover: MixColumns goes through the
+// column XOR, and each round key is moved to the S-box outputs (RK_SBOX,
+// which a kernel copies into shared memory with copy_rk_sbox), where the
+// cover takes it as an input of the output instructions (5 LOP3 more a byte
+// than the S-box alone).  The key is a run-time pointer, so one copy of the
+// round code serves both keys.
 //
 // Compiles as host C++ too (define __host__, __device__, __constant__ empty
 // and __forceinline__ as inline): tests/port/test_torch_kernel_host.py.
@@ -37,18 +30,6 @@ namespace {
 // Bit-major plane index of (bit, byte).
 __host__ __device__ constexpr int pl(int bit, int byte) { return 16 * bit + byte; }
 
-__host__ __device__ __forceinline__ void sub_bytes_bm(uint32_t s[128]) {
-#pragma unroll
-  for (int b = 0; b < 16; ++b) {
-    uint32_t x[8], y[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = s[pl(7 - i, b)];  // circuit is MSB-first
-    sbox_bp113(x, y);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[pl(7 - i, b)] = y[i];
-  }
-}
-
 // State bytes are column-major (byte 4c + r is row r of column c); row r
 // rotates left by r: out byte 4c + r = in byte 4((c + r) % 4) + r.
 __host__ __device__ __forceinline__ void shift_rows_bm(uint32_t s[128]) {
@@ -62,59 +43,6 @@ __host__ __device__ __forceinline__ void shift_rows_bm(uint32_t s[128]) {
         t[pl(bit, 4 * c + r)] = s[pl(bit, 4 * ((c + r) & 3) + r)];
 #pragma unroll
   for (int p = 0; p < 128; ++p) s[p] = t[p];
-}
-
-// Bit k of xtime(byte): doubling in GF(2^8), reduction polynomial 0x11B.
-__host__ __device__ __forceinline__ uint32_t xtime_bit(const uint32_t s[128],
-                                                       int byte, int k) {
-  const uint32_t a7 = s[pl(7, byte)];
-  switch (k) {
-    case 0: return a7;
-    case 1: return s[pl(0, byte)] ^ a7;
-    case 3: return s[pl(2, byte)] ^ a7;
-    case 4: return s[pl(3, byte)] ^ a7;
-    default: return s[pl(k - 1, byte)];
-  }
-}
-
-// out_r = 2 a_r + 3 a_{r+1} + a_{r+2} + a_{r+3} in each column.
-__host__ __device__ __forceinline__ void mix_columns_bm(uint32_t s[128]) {
-  uint32_t t[128];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int b0 = 4 * c + r;
-      const int b1 = 4 * c + ((r + 1) & 3);
-      const int b2 = 4 * c + ((r + 2) & 3);
-      const int b3 = 4 * c + ((r + 3) & 3);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        t[pl(k, b0)] = xtime_bit(s, b0, k) ^ xtime_bit(s, b1, k) ^
-                       s[pl(k, b1)] ^ s[pl(k, b2)] ^ s[pl(k, b3)];
-    }
-#pragma unroll
-  for (int p = 0; p < 128; ++p) s[p] = t[p];
-}
-
-__host__ __device__ __forceinline__ void add_round_key(uint32_t s[128], int key,
-                                                       int rnd) {
-#pragma unroll
-  for (int p = 0; p < 128; ++p) s[p] ^= RK_BM[key][rnd][p];
-}
-
-// AES-128 encryption of one column word's state with PRF key `key` (0 = L,
-// 1 = R).  The final round skips MixColumns inside the same loop body.
-__host__ __device__ __forceinline__ void aes128_encrypt_bm(uint32_t s[128],
-                                                           int key) {
-  add_round_key(s, key, 0);
-#pragma unroll 1
-  for (int rnd = 1; rnd <= 10; ++rnd) {
-    sub_bytes_bm(s);
-    shift_rows_bm(s);
-    if (rnd < 10) mix_columns_bm(s);
-    add_round_key(s, key, rnd);
-  }
 }
 
 // MixColumns in the form ops/op_count.py counts (out_r = a_r ^ t ^
@@ -173,11 +101,12 @@ __host__ __device__ __forceinline__ size_t opaque(size_t x) {
 // eleven rounds start at rk + key * kRkWords / 2.
 constexpr int kRkWords = 2 * 11 * 128;
 
-// Thread `thread` of `threads` copies its share of RK_SBOX into rk (the
-// block's shared copy; a barrier follows before any thread reads it).
-__host__ __device__ __forceinline__ void copy_rk_sbox(uint32_t* rk, int thread,
-                                                      int threads) {
-  for (int i = thread; i < kRkWords; i += threads) rk[i] = (&RK_SBOX[0][0][0])[i];
+// Thread `thread` of `threads` copies its share of the first `words` words
+// of RK_SBOX into rk (the block's shared copy: both keys, or with
+// kRkWords / 2 key L alone; a barrier follows before any thread reads it).
+__host__ __device__ __forceinline__ void copy_rk_sbox(uint32_t* rk, int thread, int threads,
+                                                      int words = kRkWords) {
+  for (int i = thread; i < words; i += threads) rk[i] = (&RK_SBOX[0][0][0])[i];
 }
 
 // The folded cipher's input: row row_of<kCanon>(q) of column word j of S

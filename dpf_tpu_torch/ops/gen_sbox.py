@@ -1,14 +1,11 @@
 """Generate ``csrc/sbox_bp113.cuh``: the CUDA kernels' S-box and round keys.
 
-The S-box circuit is not copied by hand: :func:`trace_circuit` runs
-``sbox_circuit.sbox_bp113`` on a small tracer class that records each
-``^ & | ~`` as one C statement.  For the PRG kernels the header also carries
-the S-box with masked outputs and one column of MixColumns as LOP3
-instructions, the lists of ``op_count.lop3_program`` (:func:`lop3_function`),
-so those kernels run the counted cover.  It carries the round-key masks of
-both fixed PRF keys twice: bit-major as a ``__constant__`` table
-(``aes_cuda._RK_BOTH_BM``), and moved to the S-box outputs for the PRG
-kernels (``aes_cuda._RK_SBOX``).  The generated header is committed;
+The header carries the Boyar-Peralta S-box (``sbox_circuit.sbox_bp113``)
+with masked outputs and one column of MixColumns as LOP3 instructions, the
+lists of ``op_count.lop3_program`` (:func:`lop3_function`), so the kernels
+run the counted cover; nothing is copied by hand.  It carries the round-key
+masks of both fixed PRF keys moved to the S-box outputs
+(``aes_cuda._RK_SBOX``).  The generated header is committed;
 ``tests/port/test_torch_boundary.py`` checks that it is up to date.
 
 Regenerate with ``python -m dpf_tpu_torch.ops.gen_sbox``.
@@ -19,48 +16,9 @@ from __future__ import annotations
 from pathlib import Path
 
 from . import op_count
-from .aes_cuda import _RK_BOTH_BM, _RK_SBOX
-from .sbox_circuit import sbox_bp113
+from .aes_cuda import _RK_SBOX
 
 HEADER_PATH = Path(__file__).parent / "csrc" / "sbox_bp113.cuh"
-
-
-class _Sym:
-    """A named 32-bit value; each operator appends one C statement."""
-
-    def __init__(self, tracer: "_Tracer", name: str):
-        self.tracer = tracer
-        self.name = name
-
-    def __xor__(self, other: "_Sym") -> "_Sym":
-        return self.tracer.emit(f"{self.name} ^ {other.name}")
-
-    def __and__(self, other: "_Sym") -> "_Sym":
-        return self.tracer.emit(f"{self.name} & {other.name}")
-
-    def __or__(self, other: "_Sym") -> "_Sym":
-        return self.tracer.emit(f"{self.name} | {other.name}")
-
-    def __invert__(self) -> "_Sym":
-        return self.tracer.emit(f"~{self.name}")
-
-
-class _Tracer:
-    def __init__(self):
-        self.lines: list[str] = []
-
-    def emit(self, expr: str) -> _Sym:
-        name = f"v{len(self.lines)}"
-        self.lines.append(f"const uint32_t {name} = {expr};")
-        return _Sym(self, name)
-
-
-def trace_circuit() -> tuple[list[str], list[str]]:
-    """Run ``sbox_bp113`` on symbols x[0..7] -> (statements, output names).
-    Every statement is one 32-bit logical operation."""
-    tr = _Tracer()
-    outs = sbox_bp113([_Sym(tr, f"x[{i}]") for i in range(8)])
-    return tr.lines, [o.name for o in outs]
 
 
 def lop3_function(name: str, params: str, circuit, inputs: list[str],
@@ -101,11 +59,7 @@ def _mask_table(masks) -> str:
 
 def generate() -> str:
     """The text of ``csrc/sbox_bp113.cuh``."""
-    lines, outs = trace_circuit()
-    counts = {op: sum(op in s for s in lines) for op in "&^~"}
-    body = "\n".join(f"  {s}" for s in lines)
-    assign = "\n".join(f"  y[{i}] = {o};" for i, o in enumerate(outs))
-    rk, sbox = _mask_table(_RK_BOTH_BM), _mask_table(_RK_SBOX)
+    sbox = _mask_table(_RK_SBOX)
     sbox_masked = lop3_function(
         "sbox_bp113_masked", "const uint32_t x[8], const uint32_t m[8], uint32_t y[8]",
         op_count.masked_sbox_circuit,
@@ -119,15 +73,6 @@ def generate() -> str:
 // Regenerate: python -m dpf_tpu_torch.ops.gen_sbox
 #pragma once
 #include <cstdint>
-
-// Boyar-Peralta AES S-box (sbox_circuit.sbox_bp113), traced to {len(lines)}
-// 32-bit logical operations: {counts['&']} AND, {counts['^']} XOR, {counts['~']} NOT (each XNOR is XOR then NOT).
-// MSB-first: x[0] is the most significant input bit, y[0] the output's.
-__host__ __device__ __forceinline__ void sbox_bp113(const uint32_t x[8],
-                                                    uint32_t y[8]) {{
-{body}
-{assign}
-}}
 
 // d = f(a, b, c) for the three-input function whose truth table is kLut
 // (bit 4 a + 2 b + c): one LOP3.  The host build evaluates the table.
@@ -145,21 +90,19 @@ __host__ __device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32
 #endif
 }}
 
-// The S-box with y[i] ^= m[i] on its outputs (MSB-first, as sbox_bp113).
+// The Boyar-Peralta S-box (sbox_circuit.sbox_bp113) with y[i] ^= m[i] on
+// its outputs.  MSB-first: x[0] is the most significant input bit, y[0]
+// the output's.
 {sbox_masked}
 // MixColumns of one column, a[8 * row + bit] -> o[8 * row + bit]:
 // o_r = a_r ^ t ^ xtime(a_r ^ a_(r+1)), t the XOR of the four rows.
 {mix_column}
-// Round-key masks of the two fixed PRF keys (reference dpf/dpf.go:23-24),
-// [key L/R][round][bit-major plane 16*bit + byte], each 0 or ~0.
-__constant__ uint32_t RK_BM[2][11][128] = {{
-{rk}}};
-
-// The same round keys moved to the S-box outputs, for the PRG kernels
-// (aes_bm.cuh's mmo_column_folded): [key L/R][round][canonical plane
-// 8*byte + bit].  Round 0 is the key itself, XORed into the input; round
-// r = 1..9 is InvShiftRows(InvMixColumns(key r)) and round 10
-// InvShiftRows(key 10), XORed into round r's S-box outputs.
+// The round keys of the two fixed PRF keys (reference dpf/dpf.go:23-24)
+// moved to the S-box outputs, for aes_bm.cuh's folded cipher: [key L/R]
+// [round][canonical plane 8*byte + bit], each 0 or ~0.  Round 0 is the key
+// itself, XORed into the input; round r = 1..9 is
+// InvShiftRows(InvMixColumns(key r)) and round 10 InvShiftRows(key 10),
+// XORed into round r's S-box outputs.
 __device__ const uint32_t RK_SBOX[2][11][128] = {{
 {sbox}}};
 """

@@ -3,8 +3,9 @@
 The fast profile's count (ChaCha12, :func:`chacha_instructions`) is at the
 end of this module, and each profile's pointwise walk is counted from its
 ciphers (:func:`walk_lop3_per_column`, :func:`walk_chacha_ops`,
-:func:`walk_dcf_ops`).  The rest
-counts the compat profile's AES-MMO:
+:func:`walk_dcf_ops`); the compat leaf kernels add their epilogue to the
+MMO's count (:data:`LEAF_EPILOGUE`, :func:`leaf_words_per_column`).  The
+rest counts the compat profile's AES-MMO:
 
 ``chip_smoke.py`` divides this count by the card's logic-instruction issue
 rate to get each kernel's operation bound.  It is counted, not estimated by
@@ -100,10 +101,10 @@ def _mix_column(col: list[list[_Sig]]) -> list[list[_Sig]]:
 def _encrypt(dag: _Dag, S: list[_Sig], rk_masks: np.ndarray) -> list[_Sig]:
     """AES-128 on canonical planes p = 8 * byte + bit with constant round keys."""
 
-    def add_round_key(s, rnd):
+    def xor_round_key(s, rnd):
         return [~x if rk_masks[rnd, p] else x for p, x in enumerate(s)]
 
-    s = add_round_key(S, 0)
+    s = xor_round_key(S, 0)
     for rnd in range(1, 11):
         for b in range(16):
             y = sbox_bp113([s[8 * b + 7 - i] for i in range(8)])  # MSB-first
@@ -113,7 +114,7 @@ def _encrypt(dag: _Dag, S: list[_Sig], rk_masks: np.ndarray) -> list[_Sig]:
             s = [x for c in range(4) for byte in _mix_column(
                 [s[8 * (4 * c + r) : 8 * (4 * c + r) + 8] for r in range(4)]
             ) for x in byte]
-        s = add_round_key(s, rnd)
+        s = xor_round_key(s, rnd)
     return s
 
 
@@ -309,9 +310,24 @@ def mix_column_circuit() -> tuple[_Dag, list[_Sig]]:
 @functools.cache
 def lop3_per_column(n_keys: int) -> int:
     """``LOP3`` instructions of ``n_keys`` fixed-key MMOs of one column word
-    (32 blocks): 2 for the PRG (keys L and R), 1 for the leaf convert (L)."""
+    (32 blocks): 2 for the PRG (keys L and R), 1 for the leaf MMO (L)."""
     dag, outs = trace_mmo((RK_MASKS_L, RK_MASKS_R)[:n_keys])
     return lop3_cover(dag, outs)
+
+
+# The leaf kernels' epilogue on one column word (csrc/aes_mmo.cu::leaf_store):
+# the final CW under t, one LOP3 a plane (x ^ (f & t)) beside the MMO's own
+# feed-forward, and four 32x32 bit transposes (transpose32), each 16 pairs
+# of rows at each of five stages: two PRMT a pair at the 16- and 8-bit
+# stages, two SHF and two LOP3 a pair at the 4-, 2- and 1-bit stages.
+LEAF_EPILOGUE = Counter(LOP3=128 + 4 * 3 * 16 * 2, PRMT=4 * 2 * 16 * 2, SHF=4 * 3 * 16 * 2)
+
+
+def leaf_words_per_column() -> int:
+    """Instructions of the leaf convert on one column word (32 keys at one
+    leaf): the MMO with key L (:func:`lop3_per_column`) and
+    :data:`LEAF_EPILOGUE`, all on the integer pipe at the LOP3 rate."""
+    return lop3_per_column(1) + sum(LEAF_EPILOGUE.values())
 
 
 def fused_prg_columns(entry_columns: int, levels: int) -> int:

@@ -97,13 +97,19 @@ def test_prg_bm_matches_pallas_kernel(pallas_bm_ref, via):
 
 @pytest.mark.parametrize("via", ["wrapper", "plain"])
 def test_mmo_bm_canon_matches_pallas_kernel(pallas_bm_ref, via):
+    # The plain leaf MMO equals the Pallas kernel's planes; the leaf-convert
+    # wrapper (on CPU tensors, its plain version) equals them with the final
+    # CW under t and the unpack to per-key words (the unpack is held to the
+    # reference's by test_pack_unpack_match_reference).
     S, _, _, rC = pallas_bm_ref
-    fn = (
-        aes_cuda.mmo_planes_bm_canon
-        if via == "wrapper"
-        else aes_cuda.mmo_planes_bm_canon_plain
-    )
-    np.testing.assert_array_equal(bs.from_carrier(fn(bs.to_carrier(S))), rC)
+    if via == "plain":
+        got = aes_cuda.mmo_planes_bm_canon_plain(bs.to_carrier(S))
+        np.testing.assert_array_equal(bs.from_carrier(got), rC)
+        return
+    T, fcw = _rand_words((4, 32), seed=8), _rand_words((128, 1, 32), seed=9)
+    got = aes_cuda.convert_leaves_bm(*(bs.to_carrier(a) for a in (S.reshape(128, 4, 32), T, fcw)))
+    want = bs.unpack_planes(bs.to_carrier(rC.reshape(128, 4, 32) ^ (fcw & T)))
+    np.testing.assert_array_equal(bs.from_carrier(got), bs.from_carrier(want))
 
 
 @pytest.mark.parametrize("K,N", [(32, 1), (64, 3), (96, 5)])
@@ -139,11 +145,19 @@ def test_round_key_masks_match_reference(name):
     np.testing.assert_array_equal(getattr(bs, name), getattr(ref_bs, name))
 
 
-@pytest.mark.parametrize("name", ["_TO_BM", "_FROM_BM", "_RK_BOTH_BM"])
+@pytest.mark.parametrize("name", ["_TO_BM", "_FROM_BM"])
 def test_bit_major_tables_match_reference(name):
     np.testing.assert_array_equal(
         np.asarray(getattr(aes_cuda, name)), np.asarray(getattr(ref_pallas, name))
     )
+
+
+@pytest.mark.parametrize("key", [0, 1])
+def test_rk_sbox_round_0_matches_reference(key):
+    # Round 0 of the kernels' masks is the key itself, which the reference
+    # keeps in bit-major order (_RK_BOTH_BM).
+    np.testing.assert_array_equal(aes_cuda._RK_SBOX[key, 0][aes_cuda._TO_BM],
+                                  ref_pallas._RK_BOTH_BM[key, 0])
 
 
 @pytest.mark.parametrize("k", [1, 7, 16, 31])

@@ -5,6 +5,7 @@ that is up to date.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -82,14 +83,26 @@ def test_eval_full_batch_without_cuda_raises_unless_cpu(monkeypatch):
     assert port.eval_full_batch(ka, device="cpu").shape == (2, 32)
 
 
-@pytest.mark.parametrize("wrapper", ["prg_planes_bm", "mmo_planes_bm_canon"])
+@pytest.mark.parametrize("wrapper", ["prg_planes_bm", "convert_leaves_bm"])
 def test_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
     fn = getattr(aes_cuda, wrapper)
     before = fn.launches
+    shapes = [(128, 32)] if wrapper == "prg_planes_bm" else [(128, 4, 2), (4, 2), (128, 1, 2)]
     with pytest.raises(ValueError):
-        fn(torch.empty((128, 32), dtype=torch.int32, device="meta"))
-    fn(torch.zeros((128, 32), dtype=torch.int32))  # the plain version: no launch
+        fn(*(torch.empty(s, dtype=torch.int32, device="meta") for s in shapes))
+    fn(*(torch.zeros(s, dtype=torch.int32) for s in shapes))  # the plain version: no launch
     assert fn.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(build.LIBRARIES))
+def test_bound_c_functions_are_defined_in_their_source(name):
+    # Every C function a library's ctypes binding names is defined, with as
+    # many parameters, in that library's source.
+    source = build.LIBRARIES[name][0].read_text()
+    for fn, (argtypes, _) in build._SIGNATURES[name].items():
+        m = re.search(rf'extern "C" [\w ]+\*? ?{fn}\(([^)]*)\)', source)
+        assert m, fn
+        assert len(m.group(1).split(",")) == len(argtypes), fn
 
 
 def test_port_source_scan_covers_the_fast_profile():
@@ -221,9 +234,31 @@ def test_generated_sbox_header_is_up_to_date():
     assert gen_sbox.HEADER_PATH.read_text() == gen_sbox.generate()
 
 
+class _GateCount:
+    """A value that counts the gates computed from it, by operator."""
+
+    def __init__(self, ops: Counter):
+        self.ops = ops
+
+    def _op(self, name):
+        self.ops[name] += 1
+        return _GateCount(self.ops)
+
+    def __xor__(self, other):
+        return self._op("^")
+
+    def __and__(self, other):
+        return self._op("&")
+
+    def __invert__(self):
+        return self._op("~")
+
+
 def test_sbox_gate_count():
-    # 32 AND + 83 XOR + 4 NOT: the circuit's 4 XNORs trace as XOR then NOT.
-    assert len(gen_sbox.trace_circuit()[0]) == 119
+    # 32 AND + 83 XOR + 4 NOT: the circuit's 4 XNORs count as XOR then NOT.
+    ops = Counter()
+    sbox_bp113([_GateCount(ops) for _ in range(8)])
+    assert (ops["&"], ops["^"], ops["~"]) == (32, 83, 4)
     # The operation bound's counts (NOTs free): 115 gates -> 85 LOP3 per
     # S-box; one MMO column 22,992 gates -> 16,236 LOP3; the PRG's two share
     # their first S-box layer.
@@ -272,12 +307,12 @@ def test_parse_sass():
         "        /*0010*/                   LOP3.LUT R4, R2, R3, R5, 0x96, !PT ;\n"
         "        /*0020*/                @P1 LOP3.LUT R4, R2, R3, R5, 0x96, !PT ;\n"
         "        /*0030*/               @!P0 BRA 0x70 ;\n"
-        "\t\tFunction : mmo_bm_canon_kernel\n"
+        "\t\tFunction : leaf_words_bm_kernel\n"
         "        /*0000*/                   EXIT ;\n"
     )
     assert build.parse_sass(text) == {
         "prg_bm_kernel": {"LDC": 1, "LOP3": 2, "BRA": 1},
-        "mmo_bm_canon_kernel": {"EXIT": 1},
+        "leaf_words_bm_kernel": {"EXIT": 1},
     }
 
 
@@ -287,7 +322,7 @@ def test_parse_ptxas():
         "ptxas info    : Function properties for prg_bm_kernel\n"
         "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
         "ptxas info    : Used 168 registers, 384 bytes cmem[0]\n"
-        "ptxas info    : Compiling entry function 'mmo_bm_canon_kernel' for 'sm_90a'\n"
+        "ptxas info    : Compiling entry function 'leaf_words_bm_kernel' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 170 registers\n"
     )
@@ -295,7 +330,7 @@ def test_parse_ptxas():
         "prg_bm_kernel": dict(
             registers=168, stack_bytes=8, spill_store_bytes=4, spill_load_bytes=4
         ),
-        "mmo_bm_canon_kernel": dict(
+        "leaf_words_bm_kernel": dict(
             registers=170, stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0
         ),
     }

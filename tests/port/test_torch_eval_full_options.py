@@ -68,6 +68,48 @@ def test_canon_mmo_plain_matches_reference_pallas_kernel():
         from_carrier(aes_cuda.mmo_planes_canon_plain(to_carrier(S))), np.asarray(O))
 
 
+# The leaf convert's checks: (W, Kp) at one Pallas tile (128 columns, so
+# the reference compiles its cipher once a backend); the reference's leaf
+# convert of each backend, layout and shape runs once for the module.
+LEAF_SHAPES = ((4, 32), (16, 8))
+LEAF_CONVERTS = {"xla": aes_cuda.convert_leaves_canon_plain,
+                 "pallas_bm": aes_cuda.convert_leaves_bm_plain}
+
+
+@pytest.fixture(scope="module")
+def leaf_reference():
+    """The reference's ``_convert_leaves`` (level-major) and
+    ``_convert_leaves_fused`` (node-minor) on numpy-seeded planes, control
+    words and final CW planes -> {(backend, layout, W, Kp): (S, T, fcw,
+    words)}.  Backend ``pallas_bm`` runs its Pallas kernel in interpret mode
+    at 128 columns."""
+    out = {}
+    for backend in LEAF_CONVERTS:
+        for layout in ("level_major", "node_minor"):
+            for W, kp in LEAF_SHAPES:
+                cols = (kp, W) if layout == "node_minor" else (W, kp)
+                seed = 700 + 10 * W + kp + (layout == "node_minor")
+                S, T, fcw = _planes(seed, 128, *cols), _planes(seed + 1, *cols), \
+                    _planes(seed + 2, 128, 1, kp)
+                ref = (ref_dpf._convert_leaves_fused if layout == "node_minor"
+                       else ref_dpf._convert_leaves)
+                words = ref(jnp.asarray(S), jnp.asarray(T), jnp.asarray(fcw), backend)
+                out[backend, layout, W, kp] = S, T, fcw, np.asarray(words)
+    return out
+
+
+@pytest.mark.parametrize("W,kp", LEAF_SHAPES)
+@pytest.mark.parametrize("layout", ["level_major", "node_minor"])
+@pytest.mark.parametrize("backend", sorted(LEAF_CONVERTS))
+def test_leaf_convert_plain_matches_reference(leaf_reference, backend, layout, W, kp):
+    # The plain leaf convert (the MMO, the final CW under t, the unpack to
+    # per-key words) equals the reference's on the same words, bit for bit.
+    S, T, fcw, want = leaf_reference[backend, layout, W, kp]
+    got = LEAF_CONVERTS[backend](to_carrier(S), to_carrier(T), to_carrier(fcw),
+                                 node_minor=layout == "node_minor")
+    np.testing.assert_array_equal(from_carrier(got), want)
+
+
 @pytest.fixture(scope="module")
 def interleaved_reference():
     """The reference contract of prg_planes_pallas_bm_il at B = 128 and at a
@@ -314,7 +356,7 @@ def test_fast_eval_full_takes_reference_arguments(backend):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("wrapper", ["prg_planes_canon", "mmo_planes_canon",
+@pytest.mark.parametrize("wrapper", ["prg_planes_canon", "convert_leaves_canon",
                                      "prg_planes_bm_il", "fused_levels_planes"])
 def test_new_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
     # A tensor on another device raises; a CPU tensor runs the plain
@@ -323,10 +365,12 @@ def test_new_wrappers_take_only_cpu_or_cuda_tensors(wrapper):
     before = fn.launches
 
     def operands(device):
-        if wrapper != "fused_levels_planes":
-            return (torch.zeros((128, 32), dtype=torch.int32, device=device),)
         z = functools.partial(torch.zeros, dtype=torch.int32, device=device)
-        return z((128, 2, 4)), z((2, 4)), z((2, 128, 2)), z((2, 2)), z((2, 2))
+        if wrapper == "fused_levels_planes":
+            return z((128, 2, 4)), z((2, 4)), z((2, 128, 2)), z((2, 2)), z((2, 2))
+        if wrapper == "convert_leaves_canon":
+            return z((128, 4, 2)), z((4, 2)), z((128, 1, 2))
+        return (z((128, 32)),)
 
     with pytest.raises(ValueError):
         fn(*operands("meta"))

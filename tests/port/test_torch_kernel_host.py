@@ -1,19 +1,25 @@
 """The CUDA kernels' arithmetic, compiled as host C++.
 
 ``dpf_tpu_torch/ops/csrc/aes_mmo.cu`` keeps its per-column functions
-(S-box wiring, ShiftRows/MixColumns, round-key masks, MMO feed-forward,
-canonical input and output orders, the warp pairs of the PRG kernels and of
-the interleaved PRG) compilable as plain C++: a shim defines ``__host__``,
-``__device__`` and ``__constant__`` as empty, and the ``__global__`` kernels
-sit under ``__CUDACC__``.  This test builds those functions with g++ and
-holds them, bit for bit, against the plain PyTorch versions on random
-int32[128, B] planes: every (block, thread) of one launch of
-``prg_bm_kernel`` and ``prg_canon_kernel`` at widths that leave warps and
-blocks part empty; their cipher against ``op_count``'s traced circuit for
-both keys; the generated LOP3 instructions against the cover ``op_count``
-counts.  ``csrc/aes_fused.cu`` builds into the same library: every (entry
-column, path prefix) thread of a fused launch runs in turn and is held
-against ``fused_levels_planes_plain`` for g = 1 to 4.  ``csrc/chacha_expand.cu`` is built the same way: its
+(the folded cipher of ``aes_bm.cuh``: S-box and MixColumns as generated
+LOP3 lists, round keys moved to the S-box outputs, the MMO feed-forward,
+canonical input order; the leaf kernels' epilogue: the final CW, the 32x32
+bit transposes, the per-key word stores at a leaf offset) compilable as
+plain C++: a shim defines ``__host__``, ``__device__`` and ``__constant__``
+as empty, and the ``__global__`` kernels sit under ``__CUDACC__``.  This
+test builds those functions with g++ and holds them, bit for bit, against
+the plain PyTorch versions on random words: the PRG's cipher per column and
+every (block, thread) of one launch of ``prg_bm_kernel``,
+``prg_canon_kernel`` and ``prg_bm_il_kernel`` at widths that leave warps
+and blocks part empty; the leaf convert per column and every (block,
+thread) of one launch of ``leaf_words_bm_kernel`` and
+``leaf_words_canon_kernel`` in both input layouts and at a leaf offset
+(against ``convert_leaves_bm_plain`` / ``convert_leaves_canon_plain``); the
+cipher against ``op_count``'s traced circuit for both keys; the generated
+LOP3 instructions against the cover ``op_count`` counts.
+``csrc/aes_fused.cu`` builds into the same library: every (entry column,
+path prefix) thread of a fused launch runs in turn and is held against
+``fused_levels_planes_plain`` for g = 1 to 4.  ``csrc/chacha_expand.cu`` is built the same way: its
 per-thread work (ChaCha12 core, level step, depth-first subtree walk, leaf
 convert, ascending store) runs for every thread index of a launch and is held
 against the plain versions of ``ops/chacha_cuda.py``.  The pointwise walks
@@ -101,28 +107,57 @@ extern "C" void host_walk_bm(const uint32_t* seeds, const uint32_t* t,
     }
 }
 
+// The PRG kernels' per-column cipher (aes_bm.cuh's mmo_column_folded) for
+// keys L and R on every column, bit-major in and out.
 extern "C" void host_prg(const uint32_t* S, uint32_t* L, uint32_t* R, long long B) {
   for (long long j = 0; j < B; ++j) {
-    mmo_column<false>(S, L, B, j, 0);
-    mmo_column<false>(S, R, B, j, 1);
+    mmo_column_folded<false>(S, L, B, j, &RK_SBOX[0][0][0]);
+    mmo_column_folded<false>(S, R, B, j, &RK_SBOX[1][0][0]);
   }
 }
 
-extern "C" void host_mmo_canon(const uint32_t* S, uint32_t* O, long long B) {
-  for (long long j = 0; j < B; ++j) mmo_column<true>(S, O, B, j, 0);
+// Every thread of every block of one leaf_words_bm_kernel launch
+// (leaf_words_canon_kernel's with kCanon), in turn, as the kernel runs it:
+// the block's shared copy of key L's RK_SBOX and of its tile's final CW
+// planes, then one column a thread (leaf_column, leaf_load, folded_rounds,
+// leaf_store), its input rows in its column of the block's shared copy.
+template <bool kCanon>
+static void leaf_launch_columns(const LeafArgs& a) {
+  static LeafShared sh;
+  copy_rk_sbox(sh.rk, 0, 1, kRkWords / 2);
+  for (long long b = 0; b < leaf_blocks(a); ++b) {
+    const LeafTile tile = leaf_tile(a, b);
+    stage_fcw(a, tile, sh.fcw, 0, 1);
+    for (int t = 0; t < kLeafThreads; ++t) {
+      if (!leaf_column(a, tile, t, sh.slot[t])) continue;
+      uint32_t s[128];
+      leaf_load<kCanon>(a, sh.slot[t].c, sh.rk, sh.S + t, s);
+      folded_rounds(s, sh.rk);
+      leaf_store<kCanon>(a, sh.slot[t], sh.fcw, sh.S + t, s);
+    }
+  }
 }
 
-// The canonical-order PRG and leaf MMO (prg_canon_kernel, mmo_canon_kernel).
+// The canonical-order PRG (prg_canon_kernel's per-column cipher).
 extern "C" void host_prg_canon(const uint32_t* S, uint32_t* L, uint32_t* R,
                                long long B) {
   for (long long j = 0; j < B; ++j) {
-    mmo_column<true, true>(S, L, B, j, 0);
-    mmo_column<true, true>(S, R, B, j, 1);
+    mmo_column_folded<true>(S, L, B, j, &RK_SBOX[0][0][0]);
+    mmo_column_folded<true>(S, R, B, j, &RK_SBOX[1][0][0]);
   }
 }
 
-extern "C" void host_mmo_canon_canon(const uint32_t* S, uint32_t* O, long long B) {
-  for (long long j = 0; j < B; ++j) mmo_column<true, true>(S, O, B, j, 0);
+// One leaf launch (leaf_words_canon_kernel's with canon) in either layout,
+// words into leaves leaf_off .. of out's rows of `leaves`.
+extern "C" void host_leaf_launch(int canon, const uint32_t* S, const uint32_t* T,
+                                 const uint32_t* fcw, uint32_t* out, long long W,
+                                 long long Kp, int node_minor, long long leaves,
+                                 long long leaf_off) {
+  const LeafArgs a{S, T, fcw, out, W, Kp, leaves, leaf_off, node_minor};
+  if (canon)
+    leaf_launch_columns<true>(a);
+  else
+    leaf_launch_columns<false>(a);
 }
 
 // Every thread of every block of one prg_bm_kernel launch (prg_canon_kernel
@@ -242,17 +277,16 @@ def _host_build(tmp_path_factory, name, entry):
 def host_lib(tmp_path_factory):
     lib = _host_build(tmp_path_factory, "aes_mmo_host", HOST_ENTRY)
     vp = ctypes.c_void_p
-    lib.host_prg.argtypes = [vp, vp, vp, ctypes.c_longlong]
+    ll = ctypes.c_longlong
+    lib.host_prg.argtypes = [vp, vp, vp, ll]
     lib.host_prg.restype = None
-    lib.host_mmo_canon.argtypes = [vp, vp, ctypes.c_longlong]
-    lib.host_mmo_canon.restype = None
+    lib.host_leaf_launch.argtypes = [ctypes.c_int] + [vp] * 4 + [ll, ll, ctypes.c_int, ll, ll]
+    lib.host_leaf_launch.restype = None
     lib.host_walk_bm.argtypes = [vp] * 9 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
     lib.host_walk_bm.restype = None
     for fn in (lib.host_prg_canon, lib.host_prg_il):
         fn.argtypes = [vp, vp, vp, ctypes.c_longlong]
         fn.restype = None
-    lib.host_mmo_canon_canon.argtypes = [vp, vp, ctypes.c_longlong]
-    lib.host_mmo_canon_canon.restype = None
     lib.host_fused.argtypes = [vp] * 7 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
     lib.host_fused.restype = None
     lib.host_prg_launch.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_longlong]
@@ -276,13 +310,34 @@ def test_prg_column_matches_plain(host_lib, half):
     np.testing.assert_array_equal(got, from_carrier(want))
 
 
+def _leaf_operands(seed, W, Kp, node_minor=False):
+    """Random leaf planes, control bits and final CW planes (random words,
+    not only lane masks: the kernel and the plain version compute the same
+    function of any words)."""
+    rng = np.random.default_rng(seed)
+    words = lambda *shape: rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)  # noqa: E731
+    cols = (Kp, W) if node_minor else (W, Kp)
+    return words(128, *cols), words(*cols), words(128, 1, Kp)
+
+
+_LEAF_PLAIN = {"bm": aes_cuda.convert_leaves_bm_plain,
+               "canon": aes_cuda.convert_leaves_canon_plain}
+
+
+def _check_leaf_columns(host_lib, canon, seed, W=5, Kp=32):
+    S, T, fcw = _leaf_operands(seed, W, Kp)
+    out = np.zeros((32 * Kp, W, 4), np.uint32)
+    host_lib.host_leaf_launch(int(canon), _p(S), _p(T), _p(fcw), _p(out), W, Kp, 0, W, 0)
+    want = _LEAF_PLAIN["canon" if canon else "bm"](*(to_carrier(a) for a in (S, T, fcw)))
+    np.testing.assert_array_equal(out, from_carrier(want))
+
+
 def test_mmo_canon_column_matches_plain(host_lib):
-    S = _planes(seed=2)
-    O = np.empty_like(S)
-    host_lib.host_mmo_canon(S.ctypes.data, O.ctypes.data, S.shape[1])
-    np.testing.assert_array_equal(
-        O, from_carrier(aes_cuda.mmo_planes_bm_canon_plain(to_carrier(S)))
-    )
+    # leaf_words_bm_kernel's per-column function over a launch at 32 key
+    # words (tiles of 16 key words by 4 leaves, the second part empty at
+    # W 5): the leaf MMO from bit-major planes, the final CW under t, the
+    # per-key words.
+    _check_leaf_columns(host_lib, False, seed=2)
 
 
 @pytest.mark.parametrize("kind,B", [("canon", 64), ("il", 64), ("il", 33), ("il", 97)])
@@ -354,12 +409,61 @@ def test_lop3_program_is_the_cover(name, count):
 
 
 def test_mmo_canon_canon_column_matches_plain(host_lib):
-    S = _planes(seed=4)
-    O = np.empty_like(S)
-    host_lib.host_mmo_canon_canon(S.ctypes.data, O.ctypes.data, S.shape[1])
-    np.testing.assert_array_equal(
-        O, from_carrier(aes_cuda.mmo_planes_canon_plain(to_carrier(S)))
-    )
+    # leaf_words_canon_kernel's, from canonical planes.
+    _check_leaf_columns(host_lib, True, seed=4)
+
+
+@pytest.mark.parametrize("order", ["bm", "canon"])
+@pytest.mark.parametrize("layout", ["level_major", "node_minor"])
+@pytest.mark.parametrize("Kp", [1, 3])
+@pytest.mark.parametrize("W", [1, 5, 33])
+def test_leaf_launch_matches_plain(host_lib, order, layout, Kp, W):
+    # Every (block, thread) of one leaf launch, in both plane orders and
+    # both input layouts: tiles of 1 and 2 key words (Kp 1, 3) by 64 and 32
+    # leaves, part empty at every W here (zeros where no thread writes would
+    # show).
+    node_minor = layout == "node_minor"
+    S, T, fcw = _leaf_operands(1000 + 10 * W + Kp, W, Kp, node_minor)
+    out = np.zeros((32 * Kp, W, 4), np.uint32)
+    host_lib.host_leaf_launch(int(order == "canon"), _p(S), _p(T), _p(fcw), _p(out), W, Kp,
+                              int(node_minor), W, 0)
+    want = _LEAF_PLAIN[order](*(to_carrier(a) for a in (S, T, fcw)), node_minor=node_minor)
+    np.testing.assert_array_equal(out, from_carrier(want))
+
+
+@pytest.mark.parametrize("order", ["bm", "canon"])
+@pytest.mark.parametrize("layout", ["level_major", "node_minor"])
+def test_leaf_launch_ragged_key_tile(host_lib, order, layout):
+    # 70 key words: in the level-major layout five tiles of 16 key words a
+    # block, the last one 6 wide (its other threads store nothing).
+    W, Kp = 2, 70
+    node_minor = layout == "node_minor"
+    S, T, fcw = _leaf_operands(1200, W, Kp, node_minor)
+    out = np.zeros((32 * Kp, W, 4), np.uint32)
+    host_lib.host_leaf_launch(int(order == "canon"), _p(S), _p(T), _p(fcw), _p(out), W, Kp,
+                              int(node_minor), W, 0)
+    want = _LEAF_PLAIN[order](*(to_carrier(a) for a in (S, T, fcw)), node_minor=node_minor)
+    np.testing.assert_array_equal(out, from_carrier(want))
+
+
+@pytest.mark.parametrize("order", ["bm", "canon"])
+@pytest.mark.parametrize("layout", ["level_major", "node_minor"])
+def test_leaf_launch_writes_at_its_leaf_offset(host_lib, order, layout):
+    # The chunked route: two subtrees' leaf levels of W leaves each written
+    # into one output of 2 W + 3 leaves a key, at leaf offsets 0 and W; the
+    # last 3 leaves stay untouched.
+    W, Kp = 45, 3
+    node_minor = layout == "node_minor"
+    out = np.zeros((32 * Kp, 2 * W + 3, 4), np.uint32)
+    want = torch.zeros(out.shape, dtype=torch.int32)
+    for half in range(2):
+        S, T, fcw = _leaf_operands(1100 + half, W, Kp, node_minor)
+        host_lib.host_leaf_launch(int(order == "canon"), _p(S), _p(T), _p(fcw), _p(out), W,
+                                  Kp, int(node_minor), out.shape[1], half * W)
+        _LEAF_PLAIN[order](*(to_carrier(a) for a in (S, T, fcw)), node_minor=node_minor,
+                           out=want, leaf_offset=half * W)
+    np.testing.assert_array_equal(out, from_carrier(want))
+    assert not out[:, 2 * W :].any()
 
 
 def _check_fused(host_lib, g, Kp, W, seed):
