@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``dpf_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, side by side), holds each against its plain PyTorch version on
@@ -41,8 +41,18 @@ the card's issue rate, and
 the build phase prints the built kernels' SASS instruction counts, and the
 registers and spills of the kernels that run the folded cipher
 (``FOLDED_KERNELS``: the three PRG kernels, the two leaf kernels, the walk
-and the fused levels), failing if any of them spills; phase 31 times the two PRG kernels beside
-``prg_bm_il_kernel`` (the same function) in turns.  Every
+and the fused levels) and of the fast expansion kernels
+(``STACKLESS_KERNELS``), failing if any of them spills or a fast one has a
+stack frame; phase 31 times the two PRG kernels beside
+``prg_bm_il_kernel`` (the same function) in turns.  Last, after every
+trace (traces taken after many launches lose device events), phases 32-34:
+the fast kernels against their plain versions at every split d their rule
+picks, the fast subtree route (ROADMAP C.5: configurations neither other
+plan takes, and 131,073 keys at log_n 15) against the spec, and the fast
+kernels' registers, stack and SASS counts.  ``--parent DIR`` builds DIR's
+``dpf_tpu_torch/ops/csrc/chacha_expand.cu`` with this tree's flags and
+phase 34 times both fast kernels and the fast device path in turns with
+it (parent, tree, tree, parent).  Every
 check is exact: this is integer cryptography, the tolerance is zero.
 
 Any failed phase raises, so the script exits nonzero.  Without CUDA, or
@@ -54,6 +64,7 @@ measurements.  Imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import functools
 import hashlib
 import json
@@ -62,6 +73,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -134,9 +146,10 @@ GE_LOG_N, GE_CHECK_K, GE_K = 20, 64, 1024
 COMPAT_WALK_LOG_N, COMPAT_WALK_K, COMPAT_WALK_Q = (6, 13, 33), (5, 8, 256), (13, 100, 4096)
 FAST_WALK_LOG_N, FAST_WALK_K, FAST_WALK_Q = (9, 14, 34), (9, 128, 256), 100
 # The fast profile's kernel checks, (K, W, levels): every W in {1, 3, 128,
-# 4096}, L in {0, 1, 5} and K in {1, 9, 1024}, the headline tail (1024 keys,
+# 4096}, L in {0, ..., 6} and K in {1, 9, 1024}, the headline tail (1024 keys,
 # 128 entry nodes, 4 levels) and the headline prefix groups (W 1 for 5
-# levels, W 32 for 2).
+# levels, W 32 for 2), and between them every split d that either kernel's
+# rule picks (csrc/chacha_expand.cu::split_levels: d from L - 2 to L - 1).
 # The compat EvalFull options at config 2 (phases 28-31): (backend, fuse,
 # max_plane_words) -> launches per evaluation.  nu = 13; fuse=g runs levels
 # 0-6 per level, then _fuse_schedule's groups of levels 7-12; the chunked
@@ -166,15 +179,29 @@ ODD_WIDTHS = (1, 33, 4097)
 FOLDED_KERNELS = ("prg_bm_kernel", "prg_canon_kernel", "prg_bm_il_kernel",
                   "leaf_words_bm_kernel", "leaf_words_canon_kernel", "walk_bm_kernel",
                   "fused_levels_bm_kernel")
+# The fast expansion kernels, whose depth-first stack must stay in registers:
+# the build fails if either spills or has a stack frame.
+STACKLESS_KERNELS = ("expand_tail_kernel", "fused_levels_kernel")
+# The SASS opcodes phase 15 counts in them: the ChaCha adds (IADD3 on the
+# ALU pipe, IMAD on the FMA pipe), xors, rotates and local-memory traffic.
+SASS_OPS = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "SEL", "MOV", "LDL", "STL")
 # The leaf kernels' checks, (W, Kp) in both input layouts: odd widths, more
 # key words than a block's columns, and the main path's leaf level; then two subtrees written into one output at leaf
 # offsets 0 and W, at odd widths and at the chunked route's subtree
 # (max_plane_words 2^17: 2^12 leaves).
 LEAF_CHECKS = ((1, 1), (33, 1), (4097, 1), (5, 3), (3, 100), (1 << (LOG_N - 7), K // 32))
 LEAF_CHUNK_CHECKS = ((33, 3), (1 << (LOG_N - 8), K // 32))
+# The subtree route's checks (log_n, K, max_leaf_nodes): the CPU tests'
+# cases, then the realistic batch at the default cap (K 131,073 at log_n 15:
+# 2 chunks of 2^22.0 leaves, c = 1).
+SUBTREE_CHECKS = ((14, 3, 16), (12, 9, 16), (10, 1, 1), (12, 8, 8), (15, 9, 1000),
+                  (17, 1, 512))
+SUBTREE_BIG = (15, 131073)
 FAST_CHECKS = (
-    (1, 1, 0), (1, 1, 5), (9, 3, 1), (9, 3, 5), (1, 4096, 1), (9, 4096, 5),
-    (1024, 4096, 0), (1024, 128, 1), (1024, 128, 4), (1024, 1, 5), (1024, 32, 2),
+    (1, 1, 0), (1, 1, 5), (1, 1, 6), (9, 3, 1), (9, 3, 2), (9, 3, 3), (9, 3, 4), (9, 3, 5),
+    (1, 4096, 1), (9, 4096, 5), (1024, 4096, 0), (1024, 128, 1), (1024, 128, 4),
+    (1024, 1, 5), (1024, 32, 2), (1024, 64, 2), (1024, 16, 3), (1024, 64, 3), (1024, 1, 6),
+    (64, 64, 6),
 )
 
 
@@ -721,33 +748,94 @@ def option_kernels(dev, card: str, sm_clocks_per_s: float, ka, launches) -> list
     return rows
 
 
+def parent_expand_build(parent: str):
+    """Build ``parent``'s ``dpf_tpu_torch/ops/csrc/chacha_expand.cu`` with
+    this tree's flags -> (the library with its C functions bound, (its
+    ptxas report, its SASS counts))."""
+    import ctypes
+
+    from dpf_tpu_torch.ops import build
+
+    src = Path(parent) / "dpf_tpu_torch" / "ops" / "csrc" / "chacha_expand.cu"
+    so = build.BUILD_DIR / "parent" / "chacha_expand.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src.parent), "-o",
+                           str(so), str(src)], capture_output=True, text=True, timeout=600,
+                          check=True)
+    sass = subprocess.run([str(Path(build._nvcc()).with_name("cuobjdump")), "-sass", str(so)],
+                          capture_output=True, text=True, timeout=120, check=True)
+    lib = ctypes.CDLL(str(so))
+    for fn in ("dpf_chacha_tail", "dpf_chacha_fused"):
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = (
+            build._SIGNATURES["chacha_expand"][fn])
+    return lib, (build.parse_ptxas(proc.stdout + proc.stderr), build.parse_sass(sass.stdout))
+
+
+def raw_expand(lib):
+    """(fused, tail): the contracts of ``chacha_cuda.fused_levels`` and
+    ``expand_tail`` (contiguous operands) on ``lib``'s kernels, uncounted:
+    the parent's build in phase 15's turns."""
+
+    def run(fn, *args):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's {fn.__name__}: CUDA error {rc}")
+
+    def fused(st, scw, tcw):
+        K, W, L = st.shape[1], st.shape[2], scw.shape[1]
+        out = torch.empty((5, K, W << L), dtype=torch.int32, device=st.device)
+        run(lib.dpf_chacha_fused, st.data_ptr(), st.stride(0), st.stride(1), K, W, L,
+            scw.data_ptr(), scw.stride(0), tcw.data_ptr(), tcw.stride(0), out.data_ptr(),
+            out.stride(0), out.stride(1))
+        return out
+
+    def tail(st, scw, tcw, fcw, out=None):
+        K, W, L = st.shape[1], st.shape[2], scw.shape[1]
+        if out is None:
+            out = torch.empty((K, W << L, 16), dtype=torch.int32, device=st.device)
+        run(lib.dpf_chacha_tail, st.data_ptr(), st.stride(0), st.stride(1), K, W, L,
+            scw.data_ptr(), scw.stride(0), tcw.data_ptr(), tcw.stride(0), fcw.data_ptr(),
+            fcw.stride(0), out.data_ptr(), out.stride(0))
+        return out
+
+    return fused, tail
+
+
+def subtree_run(kb, cap: int):
+    """``fast.eval_full_batch(kb, max_leaf_nodes=cap)`` on the card through
+    the subtree route -> (its output, its launches, its wall in ms), raising
+    unless both other plans refuse and the launches are the plan's."""
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.ops import chacha_cuda as cc_cuda
+
+    nu, k = kb.nu, kb.k
+    if cc_cuda.expand_plan(nu, k, cap)[0] or cc_cuda.expand_plan_chunked(nu, k, cap)[0]:
+        raise AssertionError(f"nu={nu} K={k} cap {cap}: not a subtree-route case")
+    plan = cc_cuda.expand_plan_subtrees(nu, k, cap)
+    want = {"fused_levels_kernel": len(plan.prefix) + (len(plan.groups) << plan.c),
+            "expand_tail_kernel": 1 << plan.c}
+    want = {n: v for n, v in want.items() if v}
+    torch.cuda.synchronize()
+    before = read_launches()
+    t0 = time.perf_counter()
+    out = fast.eval_full_batch(kb, max_leaf_nodes=cap)
+    wall = (time.perf_counter() - t0) * 1e3
+    after = read_launches()
+    got = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    if got != want:
+        raise AssertionError(f"subtree route {plan}: launches {got}, expected {want}")
+    return out, got, wall
+
+
 def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
-    """Phases 10-15, the fast profile (``dpf_tpu_torch.fast``); returns its
-    two kernels' rows of the kernels line."""
+    """Phases 11-16, the fast profile (``dpf_tpu_torch.fast``); returns its
+    two kernels' rows of the kernels line, whose ``max_abs_err`` phase 32
+    fills."""
     from dpf_tpu_torch import fast
     from dpf_tpu_torch.core import chacha_np
     from dpf_tpu_torch.models import dpf_chacha as mdc
     from dpf_tpu_torch.ops import chacha_cuda as cc_cuda
     from dpf_tpu_torch.ops import op_count
-
-    # 10. Each fast kernel against its plain version, on the card.
-    rng = np.random.default_rng(2025)
-    err = {"fused_levels_kernel": 0, "expand_tail_kernel": 0}
-    for k, w, levels in FAST_CHECKS:
-        st, scw, tcw, fcw = fast_operands(rng, k, w, levels, dev)
-        for kname, got, want in (
-            ("fused_levels_kernel", cc_cuda.fused_levels(st, scw, tcw),
-             cc_cuda.fused_levels_plain(st, scw, tcw)),
-            ("expand_tail_kernel", cc_cuda.expand_tail(st, scw, tcw, fcw),
-             cc_cuda.expand_tail_plain(st, scw, tcw, fcw)),
-        ):
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"{kname} != plain at K={k} W={w} L={levels}")
-            err[kname] = max(err[kname], max_abs_err(got, want))
-            del got, want
-        log(f"[fast kernel] fused_levels_kernel and expand_tail_kernel == plain "
-            f"at K={k}, W={w}, {levels} levels")
 
     # 11. The fast main path: host gen_batch, then eval_full_batch on the card
     #     for both parties, with every launch counter zeroed just before.
@@ -827,7 +915,7 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
     entry_state = mdc._prefix(cc_cuda.fused_levels, dk, entry)
     tail_args = (entry_state, dk.scw[:, entry:], dk.tcw[:, entry:], dk.fcw)
     root = dk.root_state()
-    groups = mdc._groups(entry, cc_cuda.fuse_auto_levels())
+    groups = cc_cuda.level_groups(entry)
 
     w_entry, tail_levels = 1 << entry, nu - entry
     cw_words = 4 + 2  # seed CW + t CWs per level
@@ -870,7 +958,7 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
             "name": kname, "route": "cuda", "source": FAST_SOURCE,
             "replaces": {"fused_levels_kernel": "dpf_tpu/ops/chacha_pallas.py:462",
                          "expand_tail_kernel": "dpf_tpu/ops/chacha_pallas.py:448"}[kname],
-            "launches": launches[kname], "max_abs_err": err[kname], "ms": k_ms,
+            "launches": launches[kname], "max_abs_err": None, "ms": k_ms,
             "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
@@ -887,6 +975,122 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
     ):
         log_breakdown(card, entry_name, fn, "expand_tail_kernel")
     return rows
+
+
+def fast_late_phases(dev, card: str, parent: str | None, rows: list[dict]) -> None:
+    """Phases 32-34, the fast profile's checks that launch the most, run
+    after every trace (traces taken after many launches lose device
+    events): each kernel against its plain version at every split its rule
+    picks (filling the fast rows' ``max_abs_err``), the subtree route
+    (ROADMAP C.5) on the card, and the kernels' builds, with ``parent`` (a
+    checkout) timed in turns with the parent's build."""
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.core import chacha_np
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+    from dpf_tpu_torch.ops import build
+    from dpf_tpu_torch.ops import chacha_cuda as cc_cuda
+
+    # 32. Each fast kernel against its plain version, on the card, at every
+    #     split d its rule picks.
+    rng = np.random.default_rng(2025)
+    err = {"fused_levels_kernel": 0, "expand_tail_kernel": 0}
+    split = build.load("chacha_expand").dpf_chacha_split
+    splits = {(leaf, L, d) for leaf in (0, 1) for L in range(7)
+              for d in range(max(0, L - 2), max(0, L - 1) + 1)}
+    for k, w, levels in FAST_CHECKS:
+        splits -= {(leaf, levels, split(k * w, levels, leaf)) for leaf in (0, 1)}
+        st, scw, tcw, fcw = fast_operands(rng, k, w, levels, dev)
+        for kname, got, want in (
+            ("fused_levels_kernel", cc_cuda.fused_levels(st, scw, tcw),
+             cc_cuda.fused_levels_plain(st, scw, tcw)),
+            ("expand_tail_kernel", cc_cuda.expand_tail(st, scw, tcw, fcw),
+             cc_cuda.expand_tail_plain(st, scw, tcw, fcw)),
+        ):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kname} != plain at K={k} W={w} L={levels}")
+            err[kname] = max(err[kname], max_abs_err(got, want))
+            del got, want
+        log(f"[fast kernel] fused_levels_kernel (d={split(k * w, levels, 0)}) and "
+            f"expand_tail_kernel (d={split(k * w, levels, 1)}) == plain at K={k}, W={w}, "
+            f"{levels} levels")
+    if splits:
+        raise AssertionError(f"FAST_CHECKS miss the splits (tail?, L, d) {sorted(splits)}")
+    for row in rows:
+        if row["name"] in err:
+            row["max_abs_err"] = err[row["name"]]
+
+    # 33. The subtree route (ROADMAP C.5): configurations that neither the
+    #     classic or whole-tree plan nor the chunked plan takes, against the
+    #     spec, with the launches each plan lists.
+    for log_n, k, cap in SUBTREE_CHECKS:
+        r = np.random.default_rng(log_n + k)
+        kk, _ = fast.gen_batch(r.integers(0, 1 << log_n, size=k, dtype=np.uint64), log_n, r)
+        got, n_launch, wall = subtree_run(kk, cap)
+        for i, key in enumerate(kk.to_bytes()):
+            if got[i].tobytes() != chacha_np.eval_full(key, log_n):
+                raise AssertionError(f"subtree route: key {i} != spec at n={log_n}, K={k}, "
+                                     f"cap {cap}")
+        log(f"[fast subtree] n={log_n} K={k} max_leaf_nodes={cap}: == spec, launches "
+            f"{n_launch}, wall {wall:.3f} ms")
+    log_n, k = SUBTREE_BIG
+    r = np.random.default_rng(0)
+    alphas = np.arange(k, dtype=np.uint64) % np.uint64(1 << log_n)
+    kk, kq = fast.gen_batch(alphas, log_n, r)
+    got, n_launch, wall = subtree_run(kk, mdc.MAX_LEAF_NODES)
+    got_b, _, wall_b = subtree_run(kq, mdc.MAX_LEAF_NODES)
+    if got.shape != (k, 1 << (log_n - 3)):
+        raise AssertionError(f"subtree route: shape {got.shape}")
+    blobs = kk.to_bytes()
+    for i in (0, k // 2, k - 1):
+        if got[i].tobytes() != chacha_np.eval_full(blobs[i], log_n):
+            raise AssertionError(f"subtree route: key {i} != spec at n={log_n}, K={k}")
+    assert_one_bit_at_alphas(got ^ got_b, alphas)
+    log(f"[fast subtree] n={log_n} K={k} at the default max_leaf_nodes: keys 0, "
+        f"{k // 2}, {k - 1} == spec, both shares reconstruct at every alpha; launches "
+        f"{n_launch} an evaluation, eval_full_batch wall {wall:.1f} / {wall_b:.1f} ms")
+    del got, got_b, kk, kq
+
+    # 34. The two kernels' registers, stack and SASS counts, and with
+    #     --parent, both kernels and the fast device path at config 2 in
+    #     turns with the parent checkout's build (parent, tree, tree,
+    #     parent), each launched through the same ctypes calls.
+    r = np.random.default_rng(21)
+    kk, _ = fast.gen_batch(r.integers(0, 1 << LOG_N, size=K, dtype=np.uint64), LOG_N, r)
+    dk = fast.DeviceKeysFast(kk, dev)
+    entry, root = cc_cuda.entry_level(dk.nu), dk.root_state()
+    tail_args = (mdc._prefix(cc_cuda.fused_levels, dk, entry), dk.scw[:, entry:],
+                 dk.tcw[:, entry:], dk.fcw)
+    builds = {"tree": (build.ptxas_report(), build.sass_report())}
+    if parent is not None:
+        plib, builds["parent"] = parent_expand_build(parent)
+        fns = {"parent": raw_expand(plib), "tree": raw_expand(build.load("chacha_expand"))}
+        if not (torch.equal(fns["parent"][1](*tail_args), fns["tree"][1](*tail_args))
+                and torch.equal(mdc._prefix(fns["parent"][0], dk, entry, root),
+                                mdc._prefix(fns["tree"][0], dk, entry, root))):
+            raise AssertionError("the parent's fast kernels disagree with this tree's")
+        turns = {
+            "expand_tail_kernel (queued)": (kernel_ms, lambda f: f[1](*tail_args)),
+            "fused_levels_kernel, the prefix pair (queued)": (
+                kernel_ms, lambda f: mdc._prefix(f[0], dk, entry, root)),
+            "eval_full_device's kernels, device work (queued)": (
+                kernel_ms, lambda f: mdc._eval_full_kernel_device(f, dk, entry)),
+            "eval_full_device's kernels, wall (CUDA events a call)": (
+                cuda_ms, lambda f: mdc._eval_full_kernel_device(f, dk, entry)),
+        }
+        for what, (timer, call) in turns.items():
+            got = {"parent": [], "tree": []}
+            for who in ("parent", "tree", "tree", "parent"):
+                got[who].append(timer(lambda: call(fns[who])))
+            log(f"[fast turns] {card}: {what} at n={LOG_N} K={K}, ms in turns parent, tree, "
+                f"tree, parent: parent {got['parent'][0]:.4f} / {got['parent'][1]:.4f}, tree "
+                f"{got['tree'][0]:.4f} / {got['tree'][1]:.4f}")
+    for who, (ptx, sass) in builds.items():
+        for kern in STACKLESS_KERNELS:
+            ops = sass[kern]
+            log(f"[fast build] {who} {kern}: {ptx[kern]['registers']} registers, "
+                f"{ptx[kern]['stack_bytes']} B stack, SASS static "
+                f"{sum(ops.values())}: " + ", ".join(f"{op} {ops[op]}" for op in SASS_OPS))
 
 
 # ---------------------------------------------------------------------------
@@ -1462,6 +1666,10 @@ def gate_checked(dev, card: str, sm_clocks_per_s: float, head: dict) -> list[dic
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout whose fast expansion kernels phase 15 "
+                    "times in turns with this tree's")
+    parent = ap.parse_args().parent
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1490,12 +1698,14 @@ def main() -> int:
     ptxas = build.ptxas_report()
     for kern, info in ptxas.items():
         log(f"[build] {kern}: {info}")
-    for kern in FOLDED_KERNELS:  # the redesigned kernels must not spill
+    for kern in FOLDED_KERNELS + STACKLESS_KERNELS:  # the redesigned kernels must not spill
         info = ptxas[kern]
-        log(f"[build] {kern}: {info['registers']} registers, "
+        log(f"[build] {kern}: {info['registers']} registers, {info['stack_bytes']} B stack, "
             f"{info['spill_store_bytes']} B spill stores, {info['spill_load_bytes']} B spill loads")
         if info["spill_store_bytes"] or info["spill_load_bytes"]:
             raise AssertionError(f"{kern} spills: {info}")
+        if kern in STACKLESS_KERNELS and info["stack_bytes"]:
+            raise AssertionError(f"{kern} has a stack frame: {info}")
     for kern, ops in build.sass_report().items():
         top = ", ".join(f"{op} {n}" for op, n in ops.most_common(10))
         log(f"[build] {kern} SASS, static (loop bodies once): {sum(ops.values())} "
@@ -1621,7 +1831,8 @@ def main() -> int:
     ):
         log_breakdown(card, entry, fn, "prg_bm_kernel")
 
-    rows_out += fast_phases(dev, card, n_sm * clock_hz)
+    fast_rows = fast_phases(dev, card, n_sm * clock_hz)
+    rows_out += fast_rows
     point_head = point_traced(dev, card)
     gate_head = gate_traced(dev, card, n_sm * clock_hz)
     # The compat options after the other paths' traces, traced first:
@@ -1633,6 +1844,7 @@ def main() -> int:
     # The option kernels' plain versions run last: traces after many small
     # plain launches lose device events.
     rows_out += option_kernels(dev, card, n_sm * clock_hz, ka, option_launches)
+    fast_late_phases(dev, card, parent, fast_rows)
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     log(f"[card] {card}")

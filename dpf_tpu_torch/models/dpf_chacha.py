@@ -19,7 +19,10 @@ Routes on the card, the kernels of ``ops/chacha_cuda.py``:
   ``expand_tail`` launch, at the entry level the JAX plan gives
   (``chacha_cuda.expand_plan``), or one per node-range chunk
   (``expand_plan_chunked``) when the leaves exceed ``max_leaf_nodes``;
-- small trees (nu < 7) take the whole-tree route: the tail from the root.
+- small trees (nu < 7) take the whole-tree route: the tail from the root;
+- where neither fits, the subtree route (``expand_plan_subtrees``, the
+  JAX package's XLA chunk route): the prefix to level ``c``, then each of
+  the ``2^c`` subtrees as fused groups and one tail of at most 5 levels.
 
 One deviation from the JAX routes, which adds no feature: on the TPU the
 levels above the entry run as XLA level steps, because a Pallas program
@@ -44,8 +47,8 @@ otherwise; the port's one route gives the same bytes.
 
 On the CPU the same routes run the wrappers' plain versions, so the CPU
 tests walk the card's schedule.  ``impl="plain"`` runs the plain versions
-on either device.  There is no fallback: a configuration no kernel route
-takes raises, naming its limit.
+on either device.  There is no fallback: the plans pick a kernel route
+for every (nu, K, cap).
 """
 
 from __future__ import annotations
@@ -221,9 +224,13 @@ _IMPLS = {
 }
 
 
-def _groups(n_levels: int, g: int) -> list[int]:
-    """``n_levels`` split into groups of at most ``g``, largest first."""
-    return [min(g, n_levels - i) for i in range(0, n_levels, g)]
+def _run_groups(fused, dk, state, first, groups):
+    """Levels first, first + 1, ... of ``state`` as one ``fused`` launch a
+    group (``groups``: their sizes)."""
+    for g in groups:
+        state = fused(state, dk.scw[:, first : first + g], dk.tcw[:, first : first + g])
+        first += g
+    return state
 
 
 def _prefix(fused, dk, n_levels, root=None):
@@ -232,11 +239,7 @@ def _prefix(fused, dk, n_levels, root=None):
     levels (the card's stand-in for the JAX XLA prefix) -> int32[5, K,
     2^n_levels]."""
     state = dk.root_state() if root is None else root
-    first = 0
-    for g in _groups(n_levels, cp.fuse_auto_levels()):
-        state = fused(state, dk.scw[:, first : first + g], dk.tcw[:, first : first + g])
-        first += g
-    return state
+    return _run_groups(fused, dk, state, 0, cp.level_groups(n_levels))
 
 
 def _finish_pk(tail, dk, first, state, out=None):
@@ -265,6 +268,22 @@ def _eval_full_kernel_chunked(fns, dk, entry, n_chunks):
     for a in range(0, 1 << entry, wc):
         _finish_pk(tail, dk, entry, state[:, :, a : a + wc],
                    out=out[:, a << levels : (a + wc) << levels])
+    return out
+
+
+def _eval_full_kernel_subtrees(fns, dk, plan):
+    """Subtree route (``chacha_cuda.expand_plan_subtrees``): the prefix to
+    level ``plan.c``, then for each of its ``2^c`` subtrees (the state's
+    node j, W = 1) the in-chunk fused groups and one tail launch, writing
+    the subtree's leaves into its rows of one output (the JAX package's
+    ``_expand_prefix_cc_jit`` and ``_finish_chunks_cc_scan_jit``)."""
+    fused, tail = fns
+    state = _run_groups(fused, dk, dk.root_state(), 0, plan.prefix)
+    levels = dk.nu - plan.c
+    out = torch.empty((dk.k, 1 << dk.nu, 16), dtype=torch.int32, device=dk.device)
+    for j in range(1 << plan.c):
+        sub = _run_groups(fused, dk, state[:, :, j : j + 1], plan.c, plan.groups)
+        _finish_pk(tail, dk, plan.entry, sub, out=out[:, j << levels : (j + 1) << levels])
     return out
 
 
@@ -315,12 +334,7 @@ def eval_full_device(
     ok, entry, _, n_chunks = cp.expand_plan_chunked(nu, k, max_leaf_nodes)
     if ok:
         return _eval_full_kernel_chunked(fns, dk, entry, n_chunks)
-    raise RuntimeError(
-        f"dpf-fast: no kernel route for nu={nu}, K={k} under max_leaf_nodes="
-        f"{max_leaf_nodes}: the padded batch's {kp << nu} leaves exceed it, and "
-        f"the chunked route needs nu >= 7, a chunked entry level ({entry}) of "
-        f"at most nu, and at most {cp._MAX_PREFIX_LANES} padded-key lanes there"
-    )
+    return _eval_full_kernel_subtrees(fns, dk, cp.expand_plan_subtrees(nu, k, max_leaf_nodes))
 
 
 def eval_full(

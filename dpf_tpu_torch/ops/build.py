@@ -68,6 +68,9 @@ _SIGNATURES = {
         "dpf_chacha_fused": (
             [_vp, _ll, _ll, _ll, _ll, _int, _vp, _ll, _vp, _ll, _vp, _ll,
              _ll, _vp], _int),
+        # entry nodes K * W, levels, leaf (tail 1, fused 0) -> the launch's
+        # split d
+        "dpf_chacha_split": ([_ll, _int, _int], _int),
         "dpf_chacha_error_string": ([_int], ctypes.c_char_p),
     },
     "aes_walk": {

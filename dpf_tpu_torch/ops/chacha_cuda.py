@@ -33,9 +33,13 @@ The plan functions below are copies of ``chacha_pallas``'s, as pure
 functions, as they decide on the TPU with ``DPF_TPU_EXPAND_ENTRY`` unset:
 the port's routes take the card's schedule on either device.  The TPU-only
 parts (failure latches, env knobs, the 128-lane CW padding) are not ported.
+:func:`expand_plan_subtrees` is the counterpart of the JAX package's XLA
+chunk route, for the configurations neither kernel plan takes.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,9 +52,10 @@ from .aes_bitslice import from_carrier, to_carrier
 _EKT = 8  # key tile of the Pallas kernel: the plan's key padding quantum
 _EWT = 128  # node tile of the Pallas kernel at its entry
 _EXP_LEVELS = 5  # levels the tail runs at most (entry_level)
-# The deepest subtree one kernel thread walks (csrc/chacha_expand.cu::
-# kMaxLevels); the JAX whole-tree route's deepest tree.
-_EXP_SMALL_MAX_NU = 12
+# The most levels one launch runs (csrc/chacha_expand.cu::kMaxLevels): the
+# whole-tree route's deepest tail (nu = 6); every other route's tail and
+# every fused group runs at most _EXP_LEVELS.
+_MAX_LAUNCH_LEVELS = 6
 # Cap on padded-key lanes at the chunked route's entry level.
 _MAX_PREFIX_LANES = 1 << 24
 
@@ -59,6 +64,13 @@ def fuse_auto_levels() -> int:
     """Group size of a fused-levels launch: the tail's depth, as in
     ``chacha_pallas.fuse_auto_levels``."""
     return _EXP_LEVELS
+
+
+def level_groups(n_levels: int) -> list[int]:
+    """``n_levels`` split into fused-launch groups of at most
+    :func:`fuse_auto_levels` levels, largest first."""
+    g = fuse_auto_levels()
+    return [min(g, n_levels - i) for i in range(0, n_levels, g)]
 
 
 def small_tree_entry(nu: int):
@@ -103,6 +115,42 @@ def expand_plan_chunked(nu: int, k: int, max_leaf_nodes: int):
     if not kernel_usable(nu, kp) or s > nu or (kp << s) > _MAX_PREFIX_LANES:
         return False, s, kp, 0
     return True, s, kp, 1 << chunk_bits
+
+
+class SubtreePlan(NamedTuple):
+    """The subtree route's launches (:func:`expand_plan_subtrees`): the
+    fused groups ``prefix`` of levels 0..c-1 from the root, then for each
+    of the ``2^c`` subtrees at level ``c`` the fused groups ``groups`` of
+    levels c..entry-1 and one tail of ``tail`` levels."""
+
+    n_chunks: int
+    c: int
+    prefix: list[int]
+    groups: list[int]
+    tail: int
+
+    @property
+    def entry(self) -> int:
+        """The tail's entry level."""
+        return self.c + sum(self.groups)
+
+
+def expand_plan_subtrees(nu: int, k: int, max_leaf_nodes: int) -> SubtreePlan:
+    """The subtree route, for any (nu, k, cap): the counterpart of the JAX
+    package's XLA chunk route (``dpf_tpu/models/dpf_chacha.py``'s
+    ``eval_full_device`` past both kernel plans).  The padded batch's
+    leaves make ``n_chunks = ceil(kp 2^nu / max_leaf_nodes)`` chunks, which
+    become the ``2^c`` subtrees of level ``c = min(bit_length(n_chunks - 1),
+    nu)``, as there.  A subtree finishes with fused groups of at most
+    ``fuse_auto_levels()`` levels down to ``entry = max(c, nu - 5)``, then
+    a tail of the last ``nu - entry <= 5`` levels, so no launch runs more
+    than five.  With ``c = nu`` a subtree is one node a key, whose kp
+    leaves may exceed the cap, as in the JAX route."""
+    kp = k + (-k) % _EKT
+    n_chunks = -(-(kp << nu) // max_leaf_nodes)
+    c = min((n_chunks - 1).bit_length(), nu)
+    entry = max(c, nu - _EXP_LEVELS)
+    return SubtreePlan(n_chunks, c, level_groups(c), level_groups(entry - c), nu - entry)
 
 
 # ---------------------------------------------------------------------------
@@ -171,9 +219,9 @@ def _operands(state, scw, tcw):
     levels = scw.shape[1] if scw.dim() == 3 else -1
     _check("scw", scw, (K, levels, 4), (4, 1), dev)
     _check("tcw", tcw, (K, levels, 2), (2, 1), dev)
-    if levels > _EXP_SMALL_MAX_NU:
+    if levels > _MAX_LAUNCH_LEVELS:
         raise ValueError(f"{levels} levels in one launch; the kernels take "
-                         f"at most {_EXP_SMALL_MAX_NU}")
+                         f"at most {_MAX_LAUNCH_LEVELS}")
     return K, W, levels
 
 

@@ -31,7 +31,8 @@ from dpf_tpu_torch.ops.sbox_circuit import sbox_bp113  # noqa: E402
 from test_golden_vectors import VECTORS  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[2]
-PORT_FILES = sorted((ROOT / "dpf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "dpf_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "time_chacha_split.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -99,9 +99,10 @@ def test_routes_launch_nothing_on_the_cpu():
     assert (cp.fused_levels.launches, cp.expand_tail.launches) == before
 
 
-def _route_calls(monkeypatch, log_n):
+def _route_calls(monkeypatch, log_n, **kwargs):
     """The (launch, entry width, levels) of each kernel call of one fast
-    evaluation of 8 keys, with stand-ins for the kernels."""
+    evaluation of 8 keys (``kwargs`` to ``eval_full_batch``), with
+    stand-ins for the kernels."""
     calls = []
 
     def fused(state, scw, tcw):
@@ -110,11 +111,12 @@ def _route_calls(monkeypatch, log_n):
 
     def tail(state, scw, tcw, fcw, out=None):
         calls.append(("tail", state.shape[2], scw.shape[1]))
-        return state.new_zeros((state.shape[1], state.shape[2] << scw.shape[1], 16))
+        shape = (state.shape[1], state.shape[2] << scw.shape[1], 16)
+        return state.new_zeros(shape) if out is None else out
 
     monkeypatch.setitem(dc._IMPLS, None, (fused, tail))
     _, (ka, _) = _batch(log_n, 8, seed=3)
-    fast.eval_full_batch(ka, device="cpu")
+    fast.eval_full_batch(ka, device="cpu", **kwargs)
     return calls
 
 
@@ -137,10 +139,55 @@ def test_route_schedule(monkeypatch, log_n, want):
     assert _route_calls(monkeypatch, log_n) == want
 
 
-def test_over_cap_small_tree_raises():
-    _, (ka, _) = _batch(12, 9, seed=4)  # nu = 3: no chunked route below nu = 7
-    with pytest.raises(RuntimeError, match="no kernel route"):
-        fast.eval_full_batch(ka, device="cpu", max_leaf_nodes=16)
+# ROADMAP C.5: configurations where neither the classic or whole-tree plan
+# nor the chunked plan fits, which raised "no kernel route" before the
+# subtree route.  (15, 9, 1000): 16 padded keys, 2 chunks, c = 1; (17, 1,
+# 512): nu = 8, c = 2, so an in-chunk fused group runs before the tail.
+SUBTREE_CASES = [(14, 3, 16), (12, 9, 16), (10, 1, 1), (12, 8, 8), (15, 9, 1000),
+                 (17, 1, 512)]
+
+
+@pytest.mark.parametrize("log_n,K,cap", SUBTREE_CASES)
+def test_subtree_route_matches_spec(log_n, K, cap):
+    _, (ka, _) = _batch(log_n, K, seed=log_n + K)
+    assert not cp.expand_plan(ka.nu, K, cap)[0] and not cp.expand_plan_chunked(ka.nu, K, cap)[0]
+    got = fast.eval_full_batch(ka, device="cpu", max_leaf_nodes=cap)
+    np.testing.assert_array_equal(got, _spec_rows(ka))
+
+
+def test_subtree_route_matches_reference():
+    # The JAX package's XLA chunk route on the CPU (no Pallas kernel runs).
+    from dpf_tpu.models import dpf_chacha as ref_dc
+
+    ka, _ = fast.gen_batch(np.array([3, 5, 700], np.uint64), 14, np.random.default_rng(0))
+    want = ref_dc.eval_full(ref_fast.KeyBatchFast.from_bytes(ka.to_bytes(), 14), 16,
+                            backend="xla")
+    np.testing.assert_array_equal(fast.eval_full_batch(ka, device="cpu", max_leaf_nodes=16),
+                                  want)
+
+
+@pytest.mark.parametrize("nu,K,cap,n_chunks,c", [
+    (20, 1024, 1 << 23, 128, 7), (13, 65536, 1 << 23, 64, 6), (6, 131073, 1 << 23, 2, 1),
+    (6, 9, 1000, 2, 1), (8, 1, 512, 4, 2), (1, 1, 1, 16, 1), (8, 4, 16, 128, 7),
+    (14, 8, 64, 2048, 11),
+])
+def test_subtree_plan_launches_at_most_five_levels(nu, K, cap, n_chunks, c):
+    # A pure plan: neither other plan fits, the chunks are the reference's
+    # (ceil(padded K 2^nu / cap), c = min(bit_length(n_chunks - 1), nu)),
+    # the levels add up to nu, and no launch runs more than five.
+    assert not cp.expand_plan(nu, K, cap)[0] and not cp.expand_plan_chunked(nu, K, cap)[0]
+    plan = cp.expand_plan_subtrees(nu, K, cap)
+    assert (plan.n_chunks, plan.c) == (n_chunks, c)
+    assert sum(plan.prefix) == plan.c and plan.entry + plan.tail == nu
+    assert plan.entry == max(c, nu - 5)
+    assert max(plan.prefix + plan.groups + [plan.tail]) <= cp.fuse_auto_levels() == 5
+
+
+def test_subtree_route_schedule(monkeypatch):
+    # n=17 (nu = 8), 8 keys under a cap of 512 leaves: the prefix to level 2,
+    # then each of its 4 subtrees (W = 1) as one fused level and a 5-level tail.
+    want = [("fused", 1, 2)] + [("fused", 1, 1), ("tail", 2, 5)] * 4
+    assert _route_calls(monkeypatch, 17, max_leaf_nodes=512) == want
 
 
 def test_scalar_api():

@@ -241,18 +241,26 @@ extern "C" void host_chacha_walk_dcf(const uint32_t* meta, const uint32_t* seeds
   for (long long i = 0; i < Q * K; ++i) walk_lane<true>(a, i);
 }
 
-// Every thread index of one launch, in turn, as the kernels run them.
+// Every thread index of one launch, in turn, as the kernels run them: the
+// launch's split d from the kernels' rule (split < 0) or as given.
 extern "C" void host_expand(int leaf, const uint32_t* st, long long st_row,
                             long long st_key, long long K, long long W, int levels,
                             const uint32_t* scw, long long scw_key,
                             const uint32_t* tcw, long long tcw_key,
                             const uint32_t* fcw, long long fcw_key, uint32_t* out,
-                            long long out_row, long long out_key) {
-  const ExpandArgs a{st, st_row, st_key, K, W, levels, scw, scw_key, tcw,
-                     tcw_key, fcw, fcw_key, out, out_row, out_key};
-  for (long long i = 0; i < K * W; ++i) {
-    if (leaf) expand_node<true>(a, i); else expand_node<false>(a, i);
+                            long long out_row, long long out_key, int split) {
+  ExpandArgs a = with_split(ExpandArgs{st, st_row, st_key, K, W, levels, scw, scw_key,
+                                       tcw, tcw_key, fcw, fcw_key, out, out_row,
+                                       out_key, 0}, leaf != 0);
+  if (split >= 0) a.split = split;
+  for (long long i = 0; i < (K * W) << a.split; ++i) {
+    if (leaf) expand_split<true>(a, i); else expand_split<false>(a, i);
   }
+}
+
+// The kernels' rule for d.
+extern "C" int host_split_levels(long long nodes, int levels, int leaf) {
+  return split_levels(nodes, levels, leaf != 0);
 }
 """
 
@@ -498,8 +506,10 @@ def chacha_lib(tmp_path_factory):
     lib = _host_build(tmp_path_factory, "chacha_host", CHACHA_HOST_ENTRY)
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.host_expand.argtypes = [ctypes.c_int, vp, ll, ll, ll, ll, ctypes.c_int,
-                                vp, ll, vp, ll, vp, ll, vp, ll, ll]
+                                vp, ll, vp, ll, vp, ll, vp, ll, ll, ctypes.c_int]
     lib.host_expand.restype = None
+    lib.host_split_levels.argtypes = [ll, ctypes.c_int, ctypes.c_int]
+    lib.host_split_levels.restype = ctypes.c_int
     lib.host_chacha_walk.argtypes = [vp] * 8 + [ll, ll, ctypes.c_int, ctypes.c_int]
     lib.host_chacha_walk.restype = None
     lib.host_chacha_walk_dcf.argtypes = [vp] * 9 + [ll, ll, ctypes.c_int, ctypes.c_int]
@@ -523,41 +533,92 @@ def _p(a):
     return a.ctypes.data
 
 
-@pytest.mark.parametrize("K,W,levels", [(1, 1, 0), (1, 1, 6), (3, 5, 2), (9, 16, 4), (2, 3, 5)])
-def test_chacha_tail_matches_plain(chacha_lib, K, W, levels):
+def _check_chacha_tail(lib, K, W, levels, split):
+    """One tail launch (every thread index in turn) at split d (-1: the
+    rule's) against the plain version."""
     st, scw, tcw, fcw = _state_and_cws(K, W, levels, seed=K + W + levels)
     out = np.zeros((K, W << levels, 16), np.uint32)
-    chacha_lib.host_expand(1, _p(st), K * W, W, K, W, levels, _p(scw), 4 * levels,
-                           _p(tcw), 2 * levels, _p(fcw), 16, _p(out), 0, (W << levels) * 16)
+    lib.host_expand(1, _p(st), K * W, W, K, W, levels, _p(scw), 4 * levels, _p(tcw),
+                    2 * levels, _p(fcw), 16, _p(out), 0, (W << levels) * 16, split)
     want = chacha_cuda.expand_tail_plain(to_carrier(st), to_carrier(scw),
                                          to_carrier(tcw), to_carrier(fcw))
     np.testing.assert_array_equal(out, from_carrier(want))
 
 
-@pytest.mark.parametrize("K,W,levels", [(1, 1, 5), (4, 3, 2), (2, 8, 0)])
-def test_chacha_fused_matches_plain(chacha_lib, K, W, levels):
+def _check_chacha_fused(lib, K, W, levels, split):
+    """One fused-levels launch at split d (-1: the rule's) against the plain
+    version."""
     st, scw, tcw, _ = _state_and_cws(K, W, levels, seed=10 * K + W + levels)
     out = np.zeros((5, K, W << levels), np.uint32)
-    chacha_lib.host_expand(0, _p(st), K * W, W, K, W, levels, _p(scw), 4 * levels,
-                           _p(tcw), 2 * levels, None, 0, _p(out), K * (W << levels),
-                           W << levels)
+    lib.host_expand(0, _p(st), K * W, W, K, W, levels, _p(scw), 4 * levels, _p(tcw),
+                    2 * levels, None, 0, _p(out), K * (W << levels), W << levels, split)
     want = chacha_cuda.fused_levels_plain(to_carrier(st), to_carrier(scw), to_carrier(tcw))
     np.testing.assert_array_equal(out, from_carrier(want))
 
 
-def test_chacha_tail_strided_views_match_plain(chacha_lib):
-    # The chunked route's operands: a node range of a wider state, the CWs of
-    # the last levels of a deeper key, and a node range of a wider output.
+@pytest.mark.parametrize("K,W,levels", [(1, 1, 0), (1, 1, 6), (3, 5, 2), (9, 16, 4), (2, 3, 5)])
+def test_chacha_tail_matches_plain(chacha_lib, K, W, levels):
+    _check_chacha_tail(chacha_lib, K, W, levels, -1)
+
+
+@pytest.mark.parametrize("K,W,levels", [(1, 1, 5), (4, 3, 2), (2, 8, 0)])
+def test_chacha_fused_matches_plain(chacha_lib, K, W, levels):
+    _check_chacha_fused(chacha_lib, K, W, levels, -1)
+
+
+# (levels, split d) for every thread body of a launch: each L = 0..6 with
+# each d from max(0, L - 2) (two levels below the path, M = 2) to L (one
+# node a thread).  K * W = 15 or 6: not powers of two.
+SPLITS = [(L, d) for L in range(7) for d in range(max(0, L - 2), L + 1)]
+
+
+@pytest.mark.parametrize("levels,split", SPLITS)
+def test_chacha_tail_split_matches_plain(chacha_lib, levels, split):
+    _check_chacha_tail(chacha_lib, 3, 5, levels, split)
+
+
+@pytest.mark.parametrize("levels,split", SPLITS)
+def test_chacha_fused_split_matches_plain(chacha_lib, levels, split):
+    _check_chacha_fused(chacha_lib, 2, 3, levels, split)
+
+
+@pytest.mark.parametrize("leaf,nodes,levels,d", [
+    (1, 1 << 17, 4, 2),  # config 2's tail: 1,024 keys x 128 entry nodes
+    (1, 1 << 15, 5, 3),  # the subtree route's tail at n=20 (32 nodes a key)
+    (1, 1 << 10, 6, 4),  # the whole-tree route's deepest tail, 1,024 keys
+    (1, 1, 6, 5), (1, 1 << 20, 1, 0), (1, 7, 0, 0),
+    (0, 1 << 10, 5, 4),  # config 2's first fused group, from the root
+    (0, 1 << 15, 2, 1),  # its second, from 32 nodes a key
+    (0, 1 << 15, 5, 3), (0, 1 << 20, 3, 1), (0, 5, 1, 0),
+])
+def test_chacha_split_rule(chacha_lib, leaf, nodes, levels, d):
+    # The rule the launches take (chosen by timing d on the card): two
+    # levels below each thread's path where the launch has threads enough
+    # (2^14 for the tail, 2^16 for the fused levels), else one.
+    assert chacha_lib.host_split_levels(nodes, levels, leaf) == d
+
+
+@pytest.mark.parametrize("K,W,levels", [(1, 1, 6), (4, 3, 2), (1024, 1, 5), (33, 32, 2)])
+def test_chacha_launch_split_follows_the_rule(chacha_lib, K, W, levels):
+    # Whole launches at the rule's d, at a 1,024-key root and a ragged K.
+    assert max(0, levels - 2) <= chacha_lib.host_split_levels(K * W, levels, 1) <= levels - 1
+    _check_chacha_tail(chacha_lib, K, W, levels, -1)
+    _check_chacha_fused(chacha_lib, K, W, levels, -1)
+
+
+def _check_chacha_tail_strided(lib, split):
+    """The chunked route's operands: a node range of a wider state, the CWs
+    of the last levels of a deeper key, and a node range of a wider
+    output, at split d (-1: the rule's)."""
     K, W, nu, first = 3, 8, 6, 4
     st, scw, tcw, fcw = _state_and_cws(K, W, nu, seed=7)
     levels = nu - first
     out = np.zeros((K, W << levels, 16), np.uint32)
     a, b = 2, 6
     sub = st[:, :, a:]
-    chacha_lib.host_expand(1, _p(st) + 4 * a, K * W, W, K, b - a, levels,
-                           _p(scw) + 16 * first, 4 * nu, _p(tcw) + 8 * first, 2 * nu,
-                           _p(fcw), 16, _p(out) + 64 * (a << levels), 0,
-                           (W << levels) * 16)
+    lib.host_expand(1, _p(st) + 4 * a, K * W, W, K, b - a, levels, _p(scw) + 16 * first,
+                    4 * nu, _p(tcw) + 8 * first, 2 * nu, _p(fcw), 16,
+                    _p(out) + 64 * (a << levels), 0, (W << levels) * 16, split)
     want = chacha_cuda.expand_tail_plain(
         to_carrier(np.ascontiguousarray(sub[:, :, : b - a])),
         to_carrier(np.ascontiguousarray(scw[:, first:])),
@@ -565,6 +626,33 @@ def test_chacha_tail_strided_views_match_plain(chacha_lib):
     )
     np.testing.assert_array_equal(out[:, a << levels : b << levels], from_carrier(want))
     assert not out[:, : a << levels].any() and not out[:, b << levels :].any()
+
+
+def test_chacha_tail_strided_views_match_plain(chacha_lib):
+    _check_chacha_tail_strided(chacha_lib, -1)
+
+
+@pytest.mark.parametrize("split", [0, 1, 2])
+def test_chacha_tail_strided_views_split_match_plain(chacha_lib, split):
+    _check_chacha_tail_strided(chacha_lib, split)
+
+
+@pytest.mark.parametrize("split", [-1, 1, 3])
+def test_chacha_fused_strided_views_match_plain(chacha_lib, split):
+    # The subtree route's operands: one node (W = 1) of a wider state and
+    # the CWs of middle levels of a deeper key.
+    K, W, nu, first, levels = 3, 8, 9, 2, 3
+    st, scw, tcw, _ = _state_and_cws(K, W, nu, seed=8)
+    out = np.zeros((5, K, 1 << levels), np.uint32)
+    chacha_lib.host_expand(0, _p(st) + 4 * 5, K * W, W, K, 1, levels,
+                           _p(scw) + 16 * first, 4 * nu, _p(tcw) + 8 * first, 2 * nu,
+                           None, 0, _p(out), K << levels, 1 << levels, split)
+    want = chacha_cuda.fused_levels_plain(
+        to_carrier(np.ascontiguousarray(st[:, :, 5:6])),
+        to_carrier(np.ascontiguousarray(scw[:, first : first + levels])),
+        to_carrier(np.ascontiguousarray(tcw[:, first : first + levels])),
+    )
+    np.testing.assert_array_equal(out, from_carrier(want))
 
 
 def _one_hot_select(rng, K, qp):
