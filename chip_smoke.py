@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``dpf_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--seed N]
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, side by side), holds each against its plain PyTorch version on
@@ -21,15 +21,31 @@ after.  The compat EvalFull options run after the other paths' traces:
 every route of ``OPTION_ROUTES`` at config 2 traced and timed through
 ``eval_full_device(dk, backend=..., fuse=...)`` (phase 29), then driven
 through ``eval_full_batch(kb, backend=..., fuse=...)``, each counted and
-held to the default route's bytes and the spec (phase 28); the kernels of
+held to the default route's bytes and the spec (phase 28).  Then the
+streaming and PIR paths, traced before the plain versions' many launches:
+phase 35, both profiles' ``eval_full_stream`` at config 2 (blocks against
+``eval_full_batch``'s bytes, both parties' reconstruction, the stream
+driver's event order, counted launches; times to the first and the last
+block beside the blocking call, the pinned D2H rate), and phase 36, the
+2-server PIR of both profiles at BASELINE.json's config 4 (2^24 rows x 32
+B from ``--seed``, 1024 queries; ``PirServer.answer`` one-shot and as the
+default 2-slab streamed scan, both servers counted, the rows reconstructed,
+the streamed answer equal to the one-shot one, 4 queries against a numpy
+XOR of the rows that ``eval_full_batch`` selects; of the default scan,
+queries/s and DB-GB/s end to end, the expansion, the parity scan and its
+int8 products by CUDA events, and one traced answer).  The kernels of
 those options (``prg_canon_kernel``, ``leaf_words_canon_kernel``,
 ``prg_bm_il_kernel``, ``fused_levels_bm_kernel``) are held against their
 plain versions and timed last (phases 30-31).  The leaf kernels
 (``leaf_words_bm_kernel``, ``leaf_words_canon_kernel``: the leaf MMO, the
 final CW and the per-key words in one launch) are held against their plain
 versions in both input layouts (level-major, and the fused route's
-node-minor), at odd widths and the main path's leaf level, and writing two
-subtrees into one output at leaf offsets as the chunked route does.  It checks each kernel
+node-minor), at odd widths and the leaf levels of the main path, of a
+stream chunk and of the PIR expansion, and writing two subtrees into one
+output at leaf offsets as the chunked route does.  Every kernel that the
+stream and PIR paths launch is held against its plain version at each
+shape those paths give it (``CHECK_WIDTHS``, ``LEAF_CHECKS``,
+``FAST_CHECKS``).  It checks each kernel
 path against the plain path and the chunked split against the unchunked
 one (and the fast profile's deep-tree and whole-tree routes), and times the paths and each kernel with CUDA events
 (a kernel's ``ms`` in the kernels line: its runs queued back to back behind
@@ -65,6 +81,7 @@ measurements.  Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import hashlib
 import json
@@ -114,7 +131,10 @@ VECTORS = [
 
 LOG_N, K = 20, 1024  # BASELINE.json: batched 1024-key EvalFull, n=20
 PRG_B, LEAF_B = 1 << 17, 1 << 18  # the last PRG level and the leaf level at LOG_N, K
-CHECK_WIDTHS = (32, 100, 4096, PRG_B, LEAF_B)
+# prg_bm_kernel's checks, [128, B]: an odd width and every width the compat
+# paths give it, 32 << l for l = 0 .. 16 (the main path's and the stream's
+# levels, and config 4's PIR expansion up to its last level, 2^21 columns).
+CHECK_WIDTHS = (100, *(32 << l for l in range(17)))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 LOP3_PER_SM_CLOCK = 64  # logic instructions per SM per clock (Hopper: 4 x 16 INT32 lanes)
 # ChaCha's bound, by pipe (assumed rates for sm_90a): LOP3 and SHF (the
@@ -148,8 +168,10 @@ FAST_WALK_LOG_N, FAST_WALK_K, FAST_WALK_Q = (9, 14, 34), (9, 128, 256), 100
 # The fast profile's kernel checks, (K, W, levels): every W in {1, 3, 128,
 # 4096}, L in {0, ..., 6} and K in {1, 9, 1024}, the headline tail (1024 keys,
 # 128 entry nodes, 4 levels) and the headline prefix groups (W 1 for 5
-# levels, W 32 for 2), and between them every split d that either kernel's
-# rule picks (csrc/chacha_expand.cu::split_levels: d from L - 2 to L - 1).
+# levels, W 32 for 2), the stream's at config 2 (W 1 for 1 level, a chunk's
+# W 1 for 5 and W 32 for 5), config 4's PIR tail (W 1024 for 5), and between
+# them every split d that either kernel's rule picks
+# (csrc/chacha_expand.cu::split_levels: d from L - 2 to L - 1).
 # The compat EvalFull options at config 2 (phases 28-31): (backend, fuse,
 # max_plane_words) -> launches per evaluation.  nu = 13; fuse=g runs levels
 # 0-6 per level, then _fuse_schedule's groups of levels 7-12; the chunked
@@ -186,10 +208,13 @@ STACKLESS_KERNELS = ("expand_tail_kernel", "fused_levels_kernel")
 # ALU pipe, IMAD on the FMA pipe), xors, rotates and local-memory traffic.
 SASS_OPS = ("IADD3", "IMAD", "LOP3", "SHF", "PRMT", "SEL", "MOV", "LDL", "STL")
 # The leaf kernels' checks, (W, Kp) in both input layouts: odd widths, more
-# key words than a block's columns, and the main path's leaf level; then two subtrees written into one output at leaf
+# key words than a block's columns, the main path's leaf level, a stream
+# chunk's at config 2 (2^12 leaves) and config 4's PIR leaf level (2^17
+# leaves); then two subtrees written into one output at leaf
 # offsets 0 and W, at odd widths and at the chunked route's subtree
 # (max_plane_words 2^17: 2^12 leaves).
-LEAF_CHECKS = ((1, 1), (33, 1), (4097, 1), (5, 3), (3, 100), (1 << (LOG_N - 7), K // 32))
+LEAF_CHECKS = ((1, 1), (33, 1), (4097, 1), (5, 3), (3, 100), (1 << (LOG_N - 7), K // 32),
+               (1 << (LOG_N - 8), K // 32), (1 << 17, K // 32))
 LEAF_CHUNK_CHECKS = ((33, 3), (1 << (LOG_N - 8), K // 32))
 # The subtree route's checks (log_n, K, max_leaf_nodes): the CPU tests'
 # cases, then the realistic batch at the default cap (K 131,073 at log_n 15:
@@ -197,11 +222,27 @@ LEAF_CHUNK_CHECKS = ((33, 3), (1 << (LOG_N - 8), K // 32))
 SUBTREE_CHECKS = ((14, 3, 16), (12, 9, 16), (10, 1, 1), (12, 8, 8), (15, 9, 1000),
                   (17, 1, 512))
 SUBTREE_BIG = (15, 131073)
+# eval_full_stream at config 2 (phase 35): c = 1, two chunks.  compat: one
+# prefix level, then 12 levels and a leaf convert a chunk; fast: a 1-level
+# prefix group, then a 5-level group and a 5-level tail a chunk.
+STREAM_LAUNCHES = {
+    "compat": {"prg_bm_kernel": 1 + 2 * 12, "leaf_words_bm_kernel": 2},
+    "fast": {"fused_levels_kernel": 1 + 2, "expand_tail_kernel": 2},
+}
+# BASELINE.json config 4 (phase 36): 2-server PIR, 2^24 rows x 32 B, 1024
+# batched queries; the selection expansion's launches per answer (compat nu
+# = 17; fast nu = 15, entry 10: prefix groups of 5 + 5 levels, a 5-level tail).
+PIR_ROWS, PIR_ROW_BYTES, PIR_Q = 1 << 24, 32, 1024
+PIR_LAUNCHES = {
+    "compat": {"prg_bm_kernel": 17, "leaf_words_bm_kernel": 1},
+    "fast": {"fused_levels_kernel": 2, "expand_tail_kernel": 1},
+}
+INT8_OPS_PER_S = 1.979e15  # H100 SXM published dense int8 tensor-core rate
 FAST_CHECKS = (
     (1, 1, 0), (1, 1, 5), (1, 1, 6), (9, 3, 1), (9, 3, 2), (9, 3, 3), (9, 3, 4), (9, 3, 5),
     (1, 4096, 1), (9, 4096, 5), (1024, 4096, 0), (1024, 128, 1), (1024, 128, 4),
     (1024, 1, 5), (1024, 32, 2), (1024, 64, 2), (1024, 16, 3), (1024, 64, 3), (1024, 1, 6),
-    (64, 64, 6),
+    (64, 64, 6), (1024, 1, 1), (1024, 32, 5), (1024, 1024, 5),
 )
 
 
@@ -1665,11 +1706,219 @@ def gate_checked(dev, card: str, sm_clocks_per_s: float, head: dict) -> list[dic
     return [row]
 
 
+class PhaseTimer:
+    """Host seconds spent in each named phase (the stream driver's
+    ``timer``)."""
+
+    def __init__(self):
+        self.seconds: Counter = Counter()
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] += time.perf_counter() - t0
+
+
+def driver_events(n: int) -> list:
+    """The stream driver's event order for n chunks: chunk j+1 dispatched
+    before chunk j's copy is waited on."""
+    ev = [("dispatch", 0)]
+    for j in range(1, n):
+        ev += [("dispatch", j), ("d2h_start", j - 1), ("d2h_done", j - 1)]
+    return ev + [("d2h_start", n - 1), ("d2h_done", n - 1)]
+
+
+def stream_phase(dev, card: str) -> None:
+    """Phase 35: ``eval_full_stream`` of both profiles at config 2 (n=20,
+    K=1024), launch counters zeroed just before and read just after: the
+    blocks against ``eval_full_batch``'s bytes, both parties' reconstruction,
+    the driver's event order; the times to the first and the last block
+    beside the blocking ``eval_full_batch`` in the same run, the host's wait
+    for the copies, the pinned D2H rate, and one traced stream."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+
+    profiles = {"compat": (P.gen_batch, mdpf, P.eval_full_batch, "prg_bm_kernel"),
+                "fast": (fast.gen_batch, mdc, fast.eval_full_batch, "expand_tail_kernel")}
+    rng = np.random.default_rng(35)
+    alphas = rng.integers(0, 1 << LOG_N, size=K, dtype=np.uint64)
+    for name, (gen, model, full_fn, kern) in profiles.items():
+        ka, kb = gen(alphas, LOG_N, rng)
+        full_a, full_b = full_fn(ka), full_fn(kb)
+        ev = []
+        blocks, _ = counted(f"{name} eval_full_stream n={LOG_N} K={K}",
+                            lambda: list(model.eval_full_stream(ka, events=ev)),
+                            STREAM_LAUNCHES[name])
+        if ev != driver_events(len(blocks)):
+            raise AssertionError(f"{name} stream: events {ev}")
+        got_a = np.concatenate(blocks, axis=1)
+        got_b = np.concatenate(list(model.eval_full_stream(kb)), axis=1)
+        if not (np.array_equal(got_a, full_a) and np.array_equal(got_b, full_b)):
+            raise AssertionError(f"{name} stream: blocks != eval_full_batch")
+        assert_one_bit_at_alphas(got_a ^ got_b, alphas)
+        log(f"[stream] {name}: {len(blocks)} blocks of {blocks[0].shape}, events in the "
+            f"driver's order; the blocks == eval_full_batch for both parties, which "
+            f"reconstruct to one bit at each of {K} alphas")
+
+        firsts, lasts, timer = [], [], PhaseTimer()
+        for rep in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            it = model.eval_full_stream(ka, timer=timer if rep else None)
+            next(it)
+            t1 = time.perf_counter()
+            for _ in it:
+                pass
+            if rep:  # the first run warms the pinned buffers
+                firsts.append((t1 - t0) * 1e3)
+                lasts.append((time.perf_counter() - t0) * 1e3)
+        blocking = host_ms(lambda: full_fn(ka), warmup=1, reps=5)
+        nbytes = sum(b.nbytes for b in blocks)
+        src = torch.empty(blocks[0].nbytes // 4, dtype=torch.int32, device=dev)
+        pinned = torch.empty(src.shape, dtype=torch.int32, pin_memory=True)
+        d2h_ms = cuda_ms(lambda: pinned.copy_(src, non_blocking=True))
+        pageable_ms = host_ms(lambda: src.cpu(), warmup=1, reps=5)
+        log(f"[stream time] {card}: {name} eval_full_stream n={LOG_N} K={K}: first block "
+            f"{statistics.median(firsts):.3f} ms, last block {statistics.median(lasts):.3f} ms "
+            f"(median of 5, host clock; {nbytes / 1e6:.1f} MB); blocking eval_full_batch "
+            f"{blocking:.3f} ms; host waits per stream: dispatch "
+            f"{timer.seconds['dispatch'] * 200:.3f} ms, d2h {timer.seconds['d2h'] * 200:.3f} "
+            f"ms; D2H of one {src.numel() * 4 / 1e6:.1f} MB block: pinned "
+            f"{src.numel() * 4 / d2h_ms / 1e6:.2f} GB/s ({d2h_ms:.3f} ms, CUDA events), "
+            f"pageable .cpu() {src.numel() * 4 / pageable_ms / 1e6:.2f} GB/s")
+        log_breakdown(card, f"{name} eval_full_stream", lambda: list(model.eval_full_stream(ka)),
+                      kern)
+        del blocks, full_a, full_b, got_a, got_b, src, pinned
+
+
+def first_keys(kb, n: int):
+    """The batch's first n keys, as a batch of its own type."""
+    return type(kb)(kb.log_n, kb.seeds[:n], kb.ts[:n], kb.scw[:n], kb.tcw[:n], kb.fcw[:n])
+
+
+def pir_phase(dev, card: str, seed: int) -> None:
+    """Phase 36: 2-server PIR at BASELINE config 4, full size, both profiles:
+    2^24 rows x 32 B from ``--seed`` and 1024 random indices, one-shot
+    (``db_chunk_bytes=0``: one slab) and the default streamed scan (2 slabs
+    of 2^23 rows), both servers' answers with launch counters zeroed just
+    before and read just after; the rows reconstructed, the streamed answer
+    equal to the one-shot one, 4 queries against a numpy XOR of the rows
+    that ``eval_full_batch`` selects.  Times, of the default scan:
+    queries/s and DB-GB/s end to end (host clock, median of 3), the device
+    work by CUDA events (expansion, parity scan, the scan's
+    ``torch._int_mm`` calls alone) and the idle share of one traced
+    answer."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+    from dpf_tpu_torch.models import pir
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 256, size=(PIR_ROWS, PIR_ROW_BYTES), dtype=np.uint8)
+    idx = rng.integers(0, PIR_ROWS, size=PIR_Q, dtype=np.uint64)
+    db_bytes = PIR_ROWS * PIR_ROW_BYTES
+    log(f"[pir] config 4: {PIR_ROWS} rows x {PIR_ROW_BYTES} B ({db_bytes / 2**20:.0f} MiB) "
+        f"and {PIR_Q} indices from --seed {seed} in {time.perf_counter() - t0:.1f} s")
+    profiles = {
+        "compat": (lambda kb: mdpf._cached_device_keys(kb, dev), pir._expand_sel_planes,
+                   P.eval_full_batch, "prg_bm_kernel"),
+        "fast": (lambda kb: mdpf._cached_device_keys(kb, dev, mdc._padded_device_keys),
+                 pir._fast_expand_sel, fast.eval_full_batch, "expand_tail_kernel"),
+    }
+    for profile, (keys, expand, full_fn, kern) in profiles.items():
+        qa, qb = pir.pir_query(idx, PIR_ROWS, rng=rng, profile=profile)
+        modes = {"one-shot": (0, 1), "streamed": (None, 2)}
+        servers, answers = {}, {}
+        for mode, (chunk_bytes, slabs) in modes.items():
+            sa = pir.PirServer(db, profile=profile, db_chunk_bytes=chunk_bytes)
+            sb = pir.PirServer(db, profile=profile, db_chunk_bytes=chunk_bytes)
+            if (sa.stream_chunks, sa.dom, sa.chunk_rows) != (slabs, PIR_ROWS, 1 << 16):
+                raise AssertionError(f"pir {profile} {mode}: {sa.stream_chunks} slabs, "
+                                     f"domain {sa.dom}, chunk {sa.chunk_rows}")
+            (a, b), _ = counted(f"pir {profile} {mode}: both servers' answers",
+                                lambda: (sa.answer(qa), sb.answer(qb)),
+                                {k: 2 * n for k, n in PIR_LAUNCHES[profile].items()})
+            if a.shape != (PIR_Q, PIR_ROW_BYTES) or a.dtype != np.uint8:
+                raise AssertionError(f"pir {profile} {mode}: answer {a.shape} {a.dtype}")
+            if not np.array_equal(pir.pir_reconstruct(a, b), db[idx.astype(np.int64)]):
+                raise AssertionError(f"pir {profile} {mode}: reconstruction != db[idx]")
+            servers[mode], answers[mode] = sa, (a, b)
+            log(f"[pir] {profile} {mode} ({sa.stream_chunks} slab(s) of {sa.stream_rows} "
+                f"rows, {sa.chunk_rows}-row products): both servers' answers reconstruct "
+                f"db[idx] for all {PIR_Q} queries")
+            del sb
+        if any(not np.array_equal(x, y) for x, y in zip(answers["one-shot"],
+                                                         answers["streamed"])):
+            raise AssertionError(f"pir {profile}: streamed answer != one-shot answer")
+        bits = np.unpackbits(full_fn(first_keys(qa, 4)), axis=1, bitorder="little")
+        words = db.view("<u8")
+        for i in range(4):
+            want = np.bitwise_xor.reduce(words[bits[i].astype(bool)], axis=0).view(np.uint8)
+            if not np.array_equal(answers["one-shot"][0][i], want):
+                raise AssertionError(f"pir {profile}: query {i} != XOR of the selected rows")
+        log(f"[pir] {profile}: streamed answers == one-shot answers byte for byte; queries "
+            f"0-3 of server A == numpy XOR of the rows eval_full_batch selects")
+
+        # Where the time goes, in the default (streamed) mode: one answer
+        # traced before the timing runs' many launches, then timed.  The
+        # modes differ only in the scan's loop bounds.
+        srv = servers["streamed"]
+        wall_ms, span_ms, busy = device_breakdowns([functools.partial(srv.answer, qa)],
+                                                   [kern])[0]
+        dk = keys(qa)
+        sel = expand(dk)
+        exp_ms = cuda_ms(lambda: expand(dk), warmup=1, reps=5)
+        # The scan's int8 products alone, on its operands (the unpacked bits
+        # of one chunk, the database's column-major as pir._int_mm_bits
+        # gives them), and with the database's bits row-major instead.
+        n_mm = srv.dom // srv.chunk_rows
+        sel8 = pir._unpack_bits_i8(sel[:, : srv.chunk_rows // 32])
+        rows = max(pir._MM_MIN_ROWS, sel8.shape[0] + (-sel8.shape[0]) % 8)
+        sel8 = torch.nn.functional.pad(sel8, (0, 0, 0, rows - sel8.shape[0]))
+        db8 = pir._unpack_bits_i8_t(srv.db_words[: srv.chunk_rows])
+        db8_rows = db8.t().contiguous()
+        mm_ms = cuda_ms(lambda: [pir._int_mm_bits(sel8, db8) for _ in range(n_mm)],
+                        warmup=1, reps=5)
+        mm_rows_ms = cuda_ms(lambda: [torch._int_mm(sel8, db8_rows) for _ in range(n_mm)],
+                             warmup=1, reps=3)
+        mm_bound = 2 * rows * srv.dom * 8 * PIR_ROW_BYTES / INT8_OPS_PER_S * 1e3
+        log(f"[pir time] {card}: {profile}: the scan's {n_mm} int8 products alone "
+            f"[{rows} x {srv.chunk_rows}] x [{srv.chunk_rows} x {8 * PIR_ROW_BYTES}]: "
+            f"{mm_ms:.3f} ms (CUDA events; int8 bound {mm_bound:.3f} ms); with the "
+            f"database's bits row-major: {mm_rows_ms:.3f} ms")
+        e2e = host_ms(functools.partial(srv.answer, qa), warmup=1, reps=3)
+        scan_ms = cuda_ms(functools.partial(srv._stream_scan, sel), warmup=1, reps=5)
+        total = sum(us for us, _ in busy.values()) / 1e3
+        log(f"[pir time] {card}: {profile} streamed ({srv.stream_chunks} slabs): answer of "
+            f"{PIR_Q} queries {e2e:.3f} ms end to end (host clock, median of 3): "
+            f"{PIR_Q / e2e * 1e3:.1f} queries/s, {db_bytes / e2e / 1e6:.2f} DB-GB/s; "
+            f"device (CUDA events): expansion {exp_ms:.3f} ms, parity scan "
+            f"{scan_ms:.3f} ms, its products {100 * mm_ms / scan_ms:.1f} % of it; "
+            f"traced answer: wall {wall_ms:.3f} ms, device span {span_ms:.3f} ms, busy "
+            f"{total:.3f} ms in {kernel_launches(busy)} kernel launches, idle "
+            f"{100 - 100 * total / span_ms:.1f} % of the span, "
+            f"{100 - 100 * total / wall_ms:.1f} % of the wall")
+        for kname, (us, count) in sorted(busy.items(), key=lambda kv: -kv[1][0])[:6]:
+            log(f"[profile]   {us / 1e3:9.3f} ms {count:5d}x  {kname[:110]}")
+        del servers, srv, sa, sel, sel8, db8, db8_rows
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose fast expansion kernels phase 15 "
                     "times in turns with this tree's")
-    parent = ap.parse_args().parent
+    ap.add_argument("--seed", type=int, default=4, help="seed of phase 36's PIR database "
+                    "and queries")
+    args = ap.parse_args()
+    parent = args.parent
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1839,6 +2088,9 @@ def main() -> int:
     # traces taken after many launches lose device events.
     option_times(dev, card, ka)
     option_launches = option_routes(dev, card, ka, kb, alphas, out_a)
+    # Streaming and PIR, traced before the plain versions' many launches.
+    stream_phase(dev, card)
+    pir_phase(dev, card, args.seed)
     rows_out += point_checked(dev, card, n_sm * clock_hz, point_head)
     rows_out += gate_checked(dev, card, n_sm * clock_hz, gate_head)
     # The option kernels' plain versions run last: traces after many small

@@ -40,6 +40,9 @@ class KeyBatch:
     # Pointwise evaluation's lane masks per device (models/dpf._point_masks),
     # built at first use: key material is immutable once evaluated.
     _point_masks: dict = field(default_factory=dict, repr=False, compare=False)
+    # Full-domain evaluation's packed key material per device
+    # (models/dpf._cached_device_keys), built at first use.
+    _device_keys: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def k(self) -> int:

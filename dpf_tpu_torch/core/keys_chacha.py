@@ -39,6 +39,9 @@ class KeyBatchFast:
     # The pointwise walk's operands per (groups, device)
     # (ops/chacha_cuda.walk_operands), built at first use.
     _walk_ops: dict = field(default_factory=dict, repr=False, compare=False)
+    # Full-domain evaluation's DeviceKeysFast of the batch padded to the
+    # plan's 8-key quantum, per device (models/dpf._cached_device_keys).
+    _device_keys: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def k(self) -> int:

@@ -44,9 +44,9 @@ import numpy as np
 
 from ..core import bitpack
 from ..core import chacha_np as cc
+from ..core.device import resolve_device
 from ..core.keys_chacha import _draw_roots
 from ..ops import chacha_cuda as cp
-from .dpf import _resolve_device
 
 
 @dataclass
@@ -267,7 +267,7 @@ def eval_lt_points(
         raise ValueError("dcf: xs must be [K, Q]")
     if (xs >> np.uint64(kb.log_n)).any():
         raise ValueError("dcf: query index out of domain")
-    return cp.eval_points_walk_dcf(kb, xs, packed=packed, device=_resolve_device(device))
+    return cp.eval_points_walk_dcf(kb, xs, packed=packed, device=resolve_device(device))
 
 
 def _interval_alphas(lo, hi, log_n: int, tag: str):

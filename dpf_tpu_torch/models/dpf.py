@@ -25,7 +25,10 @@ Outputs are byte-identical to the reference: leaves emit in ascending index
 order (children interleave L,R like the DFS emit order), and each leaf is the
 MMO-converted seed XOR the final CW when the control bit is set.  Domains
 whose leaf level exceeds ``max_plane_words`` split into independent subtree
-chunks, finished one after another.
+chunks, finished one after another.  :func:`eval_full_stream` yields those
+chunks as blocks, each block's copy to the host overlapping the next
+block's compute (``core/stream.py``).  A key batch keeps its packed
+``DeviceKeys`` per device (``_device_keys``), built at first use.
 
 Pointwise evaluation (:func:`eval_points`, :func:`eval_points_level_grouped`)
 walks root to leaf instead: the operand prep (plain PyTorch, as it is XLA in
@@ -41,7 +44,9 @@ import numpy as np
 import torch
 
 from ..core import bitpack
+from ..core.device import resolve_device
 from ..core.keys import KeyBatch
+from ..core.stream import chunk_levels, stream_chunks
 from ..ops.aes_bitslice import (
     from_carrier,
     pack_padded_keys,
@@ -108,19 +113,6 @@ def _resolve_backend(backend: str | None) -> str:
     return backend
 
 
-def _resolve_device(device) -> torch.device:
-    """``None`` means the card.  Without CUDA, raise unless the caller asked
-    for the CPU: the evaluator never moves to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            'CUDA is not available; pass device="cpu" to evaluate on the CPU'
-        )
-    return dev
-
-
 # ---------------------------------------------------------------------------
 # Packing of key material into plane/mask form
 # ---------------------------------------------------------------------------
@@ -139,7 +131,7 @@ class DeviceKeys:
     K is zero-padded to a multiple of 32, the lane-packing quantum."""
 
     def __init__(self, kb: KeyBatch, device=None):
-        dev = self.device = _resolve_device(device)
+        dev = self.device = resolve_device(device)
         self.nu = kb.nu
         self.k = kb.k
         pad = (-kb.k) % 32
@@ -337,9 +329,88 @@ def eval_full(
     ``fuse`` as in :func:`eval_full_device`.  ``device=None`` is the
     card."""
     backend = _resolve_backend(backend)
-    dk = DeviceKeys(kb, device)
+    dk = _cached_device_keys(kb, device)
     words = eval_full_device(dk, max_plane_words, backend, fuse)  # [Kpad, W, 4]
-    return from_carrier(words[: kb.k]).view("<u1").reshape(kb.k, -1)
+    return _words_to_rows(from_carrier(words[: kb.k]), kb.k)
+
+
+def _words_to_rows(words: np.ndarray, k: int) -> np.ndarray:
+    """[>= k, W, 4] words -> uint8[k, W*16] output-byte rows."""
+    return np.ascontiguousarray(words[:k]).view("<u1").reshape(k, -1)
+
+
+def _cached_device_keys(kb, device=None, build=None):
+    """The batch's key material on ``device`` (None: the card), built by
+    ``build(kb, device)`` (None: :class:`DeviceKeys`) at its first use on
+    that device and kept on the batch (its ``_device_keys``): key material
+    is immutable once evaluated, and a batch evaluated again, or streamed
+    chunk by chunk, must not repack and re-upload it on every call."""
+    dev = resolve_device(device)
+    dk = kb._device_keys.get(dev)
+    if dk is None:
+        dk = kb._device_keys[dev] = (build or DeviceKeys)(kb, dev)
+    return dk
+
+
+def eval_full_stream(
+    kb: KeyBatch,
+    max_plane_words: int = MAX_PLANE_WORDS,
+    backend: str | None = None,
+    min_chunks: int = 2,
+    events: list | None = None,
+    timer=None,
+    *,
+    device=None,
+    impl: str | None = None,
+):
+    """Double-buffered streaming full-domain evaluation on ``device``
+    (None: the card).
+
+    Yields uint8[K, chunk_bytes] blocks whose axis-1 concatenation is
+    byte-identical to :func:`eval_full`.  A prefix of ``c`` levels runs
+    once; then each of the ``2^c`` subtrees is one dispatch (its levels
+    and the leaf convert into a fresh block), and chunk ``j+1``'s compute
+    is dispatched before chunk ``j``'s copy to the host is waited on
+    (``core/stream.stream_chunks``), so a consumer gets its first bytes
+    after about one chunk instead of the whole tree.  ``c`` is the least
+    split that fits ``max_plane_words`` words a plane and makes at least
+    ``min_chunks`` chunks, nu permitting; with ``c = 0`` the one block is
+    :func:`eval_full_device`'s.
+
+    ``backend`` as in :func:`eval_full_device` (None: ``"pallas_bm"``);
+    ``events`` and ``timer`` follow the driver's protocol; ``impl`` as in
+    :func:`eval_full_device`.  A generator: nothing runs, and nothing
+    raises, before the first ``next``."""
+    backend = _resolve_backend(backend)
+    if impl not in _IMPLS[backend]:
+        raise ValueError(f"impl must be one of {list(_IMPLS[backend])}, got {impl!r}")
+    prg, convert = _IMPLS[backend][impl]
+    dk = _cached_device_keys(kb, device)
+    nu = dk.nu
+    c = chunk_levels((1 << nu) * (dk.k_padded // 32), max_plane_words, min_chunks, nu)
+
+    def to_rows(words):
+        return _words_to_rows(words, kb.k)
+
+    if c == 0:
+        yield from stream_chunks(
+            0, lambda j: eval_full_device(dk, max_plane_words, backend, impl=impl)[: kb.k],
+            to_rows, events, timer, device=dk.device,
+        )
+        return
+    seeds, scw = dk.seed_planes, dk.scw_planes
+    if backend in _BM_BACKENDS:
+        seeds, scw = _to_bm(seeds, scw)
+    tl, tr = dk.tl_words, dk.tr_words
+    S, T = _expand(c, 0, seeds, dk.t_words, scw, tl, tr, prg)
+
+    def dispatch(j):
+        Sj, Tj = _expand(
+            nu - c, c, S[:, j : j + 1].contiguous(), T[j : j + 1], scw, tl, tr, prg
+        )
+        return convert(Sj, Tj, dk.fcw_planes)[: kb.k]
+
+    yield from stream_chunks(c, dispatch, to_rows, events, timer, device=dk.device)
 
 
 # ---------------------------------------------------------------------------
@@ -478,7 +549,7 @@ def eval_points(kb: KeyBatch, xs: np.ndarray, backend: str | None = None,
     if (xs >> np.uint64(kb.log_n)).any():
         raise ValueError("dpf: query index out of domain")
     walk = _walk_fn(impl)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if not xs.size:  # no keys or no queries: nothing to launch
         return bitpack.empty_rows(kb.k, xs.shape[1], packed)
     xs_hi, xs_lo = _split_words(_pad_queries(xs), kb.log_n, dev)
@@ -582,7 +653,7 @@ def eval_points_level_grouped(
     if (xs >> np.uint64(n)).any():
         raise ValueError("dpf: query index out of domain")
     walk = _walk_fn(impl)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if not xs.size:  # no gates or no queries: nothing to launch
         return bitpack.empty_rows(G if reduce else kb.k, Q, packed)
     xs_hi, xs_lo = _split_words(_pad_queries(xs), n, dev)

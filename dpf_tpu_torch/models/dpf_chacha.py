@@ -39,6 +39,12 @@ schedule has no counterpart here.  A log_n <= 9
 domain (nu = 0) has no levels and takes the whole-tree route as one leaf
 convert.
 
+:func:`eval_full_stream` yields the same bytes as subtree blocks: the
+prefix to the split level once, then each subtree's fused groups and tail
+(``chacha_cuda.subtree_plan``), each block's copy to the host overlapping
+the next block's compute (``core/stream.py``).  A key batch keeps its
+padded device keys per device (``_device_keys``), built at first use.
+
 Pointwise evaluation (:func:`eval_points`, :func:`eval_points_level_grouped`)
 is one ``walk`` launch per call (``ops/chacha_cuda.py``): every (query, key)
 pair walks root to leaf in one thread, for any K and Q.  The JAX package
@@ -57,10 +63,12 @@ import numpy as np
 import torch
 
 from ..core import chacha_np as cc
+from ..core.device import resolve_device
 from ..core.keys_chacha import KeyBatchFast, _pad_fast_batch
+from ..core.stream import chunk_levels, stream_chunks
 from ..ops import chacha_cuda as cp
 from ..ops.aes_bitslice import from_carrier, lshr, to_carrier
-from .dpf import _resolve_device, _split_words
+from .dpf import _cached_device_keys, _split_words
 
 
 def _s32(v: int) -> int:
@@ -194,7 +202,7 @@ class DeviceKeysFast:
     ``KeyBatchFast.device_args``."""
 
     def __init__(self, kb: KeyBatchFast, device=None):
-        dev = self.device = _resolve_device(device)
+        dev = self.device = resolve_device(device)
         self.log_n, self.nu, self.k = kb.log_n, kb.nu, kb.k
         self.seeds = to_carrier(kb.seeds, dev)
         self.ts = to_carrier(kb.ts.astype(np.uint32), dev)
@@ -287,6 +295,17 @@ def _eval_full_kernel_subtrees(fns, dk, plan):
     return out
 
 
+def _padded_device_keys(kb: KeyBatchFast, device) -> DeviceKeysFast:
+    """The batch padded to the plan's 8-key quantum, on ``device``."""
+    return DeviceKeysFast(_pad_fast_batch(kb, (-kb.k) % cp._EKT), device)
+
+
+def _impl_fns(impl):
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {list(_IMPLS)}, got {impl!r}")
+    return _IMPLS[impl]
+
+
 def _check_backend(backend: str | None) -> None:
     """The JAX package's fast backends (``dpf_tpu.models.dpf_chacha``):
     both run the one kernel route here, whose bytes are the same."""
@@ -318,13 +337,11 @@ def eval_full_device(
     ``impl=None`` runs the kernels on CUDA and their plain versions on the
     CPU; ``impl="plain"`` the plain versions on either."""
     _check_backend(backend)
-    if impl not in _IMPLS:
-        raise ValueError(f"impl must be one of {list(_IMPLS)}, got {impl!r}")
+    fns = _impl_fns(impl)
     if isinstance(kb, KeyBatchFast):
-        pk = _pad_fast_batch(kb, (-kb.k) % cp._EKT)
-        words = eval_full_device(DeviceKeysFast(pk, device), max_leaf_nodes, impl=impl)
-        return words[: kb.k]
-    dk, fns = kb, _IMPLS[impl]
+        dk = _cached_device_keys(kb, device, _padded_device_keys)
+        return eval_full_device(dk, max_leaf_nodes, impl=impl)[: kb.k]
+    dk = kb
     nu, k = dk.nu, dk.k
     eligible, entry, kp = cp.expand_plan(nu, k, max_leaf_nodes)
     if eligible:
@@ -352,6 +369,55 @@ def eval_full(
     :func:`eval_full_device`.  ``device=None`` is the card."""
     words = eval_full_device(kb, max_leaf_nodes, backend, fuse, device=device, impl=impl)
     return from_carrier(words).view("<u1").reshape(kb.k, -1)
+
+
+def eval_full_stream(
+    kb: KeyBatchFast,
+    max_leaf_nodes: int = MAX_LEAF_NODES,
+    min_chunks: int = 2,
+    events: list | None = None,
+    timer=None,
+    *,
+    device=None,
+    impl: str | None = None,
+):
+    """Fast-profile twin of ``models/dpf.eval_full_stream`` on ``device``
+    (None: the card): yields uint8[K, chunk_bytes] blocks whose axis-1
+    concatenation is byte-identical to :func:`eval_full`.
+
+    ``c = chunk_levels(K 2^nu, max_leaf_nodes, min_chunks, nu)``, with K
+    the batch's own key count, as in the JAX package.  The prefix of ``c``
+    levels runs once as ``fused_levels`` launches; then each of the
+    ``2^c`` subtrees is one dispatch: the subtree route's in-chunk fused
+    groups and one tail into a fresh ``[K, 2^(nu-c), 16]`` block
+    (``chacha_cuda.subtree_plan``).  The JAX package finishes each chunk
+    with XLA level steps; the kernels give the same bytes.  With ``c = 0``
+    the one block is :func:`eval_full_device`'s.  ``events`` and ``timer``
+    follow the driver's protocol (``core/stream.stream_chunks``); ``impl``
+    as in :func:`eval_full_device`.  A generator: nothing runs, and
+    nothing raises, before the first ``next``."""
+    fused, tail = _impl_fns(impl)
+    dk = _cached_device_keys(kb, device, _padded_device_keys)
+    nu = kb.nu
+    c = chunk_levels(kb.k << nu, max_leaf_nodes, min_chunks, nu)
+
+    def to_rows(words):
+        return np.ascontiguousarray(words).view("<u1").reshape(kb.k, -1)
+
+    if c == 0:
+        yield from stream_chunks(
+            0, lambda j: eval_full_device(dk, max_leaf_nodes, impl=impl)[: kb.k],
+            to_rows, events, timer, device=dk.device,
+        )
+        return
+    plan = cp.subtree_plan(nu, c)
+    state = _run_groups(fused, dk, dk.root_state(), 0, plan.prefix)
+
+    def dispatch(j):
+        sub = _run_groups(fused, dk, state[:, :, j : j + 1], c, plan.groups)
+        return _finish_pk(tail, dk, plan.entry, sub)[: kb.k]
+
+    yield from stream_chunks(c, dispatch, to_rows, events, timer, device=dk.device)
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +459,7 @@ def eval_points(
     if (xs >> np.uint64(kb.log_n)).any():
         raise ValueError("dpf-fast: query index out of domain")
     walk = _walk_fn(impl)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     return cp.eval_points_walk(kb, xs, packed=packed, device=dev, walk_fn=walk)
 
 
@@ -442,6 +508,6 @@ def eval_points_level_grouped(
     if (xs >> np.uint64(kb.log_n)).any():
         raise ValueError("dpf-fast: query index out of domain")
     walk = _walk_fn(impl)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     return cp.eval_points_walk(kb, xs, groups=groups, reduce=reduce, packed=packed,
                                device=dev, walk_fn=walk)

@@ -149,8 +149,18 @@ def expand_plan_subtrees(nu: int, k: int, max_leaf_nodes: int) -> SubtreePlan:
     kp = k + (-k) % _EKT
     n_chunks = -(-(kp << nu) // max_leaf_nodes)
     c = min((n_chunks - 1).bit_length(), nu)
+    return subtree_plan(nu, c)._replace(n_chunks=n_chunks)
+
+
+def subtree_plan(nu: int, c: int) -> SubtreePlan:
+    """The subtree route's launches at a given split ``0 <= c <= nu`` (its
+    ``n_chunks`` is ``2^c``): the prefix groups of levels 0..c-1, then a
+    subtree's fused groups down to ``entry = max(c, nu - 5)`` and a tail of
+    the last ``nu - entry`` levels.  :func:`expand_plan_subtrees` picks
+    ``c`` from the leaf cap; the fast ``eval_full_stream`` from its
+    chunking."""
     entry = max(c, nu - _EXP_LEVELS)
-    return SubtreePlan(n_chunks, c, level_groups(c), level_groups(entry - c), nu - entry)
+    return SubtreePlan(1 << c, c, level_groups(c), level_groups(entry - c), nu - entry)
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
         "import dpf_tpu_torch.fast, dpf_tpu_torch.models.dpf_chacha, dpf_tpu_torch.ops.chacha_cuda\n"
         "import dpf_tpu_torch.core.chacha_np, dpf_tpu_torch.core.keys_chacha\n"
         "import dpf_tpu_torch.core.bitpack, dpf_tpu_torch.models.dcf, dpf_tpu_torch.models.fss\n"
+        "import dpf_tpu_torch.core.stream, dpf_tpu_torch.models.pir\n"
         "dpf_tpu_torch.fss\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
         "print(bad)\n"
@@ -372,6 +373,35 @@ def test_eval_points_batch_without_cuda_raises_unless_cpu(monkeypatch):
     for model, kb in ((port_dpf, ka), (port_dc, fa)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             model.eval_points_level_grouped(kb, xs[:1, :1] // 8, 1, levels=(0, 3))
+
+
+def test_port_source_scan_covers_the_stream_and_pir():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"dpf_tpu_torch/core/stream.py", "dpf_tpu_torch/models/pir.py"} <= names
+
+
+def test_stream_and_pir_without_cuda_raise_unless_cpu(monkeypatch):
+    from dpf_tpu_torch.core import stream
+    from dpf_tpu_torch.models import pir
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0))
+    fa, _ = fast.gen_batch([5, 9], 12, np.random.default_rng(0))
+    db = np.zeros((300, 8), np.uint8)
+    for profile in ("compat", "fast"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            pir.PirServer(db, profile=profile)
+        assert pir.PirServer(db, profile=profile, device="cpu").db_words.device.type == "cpu"
+    # The streams are generators: they raise at their first next.
+    for model, kb in ((port_dpf, ka), (port_dc, fa)):
+        gen = model.eval_full_stream(kb)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            next(gen)
+        assert len(list(model.eval_full_stream(kb, device="cpu"))) == 2
+    words = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        next(stream.stream_chunks(1, lambda j: words, lambda w: w))
+    assert len(list(stream.stream_chunks(1, lambda j: words, lambda w: w, device="cpu"))) == 2
 
 
 def _walk_bm_operands(device, K=2, qp=3, nu=2):
