@@ -33,7 +33,19 @@ default 2-slab streamed scan, both servers counted, the rows reconstructed,
 the streamed answer equal to the one-shot one, 4 queries against a numpy
 XOR of the rows that ``eval_full_batch`` selects; of the default scan,
 queries/s and DB-GB/s end to end, the expansion, the parity scan and its
-int8 products by CUDA events, and one traced answer).  The kernels of
+int8 products by CUDA events, and one traced answer).  Then the dealer, heavy hitters and aggregation on the card,
+each traced before its heavy checks: phase 37, ``gen_batch`` of both
+profiles and ``fast.dcf_gen_lt_batch`` (all three families at n=20 with
+1024 and 65,536 keys, the DCF at n=32 with 4096) byte-identical to the host
+tower on the same roots, every key reconstructing at its alpha, and
+``gen_tower_cc_kernel`` against ``gen_tower_plain``; phase 38, heavy
+hitters of both profiles at bench_all.py's full size (16384 clients, n=16,
+4 x 320 planted, threshold 160): ``gen_shares`` dealing 262,144 keys a
+party on the card, ``find_heavy_hitters`` incremental and stateless, each
+recovering the planted values with exact counts, and the on-card count
+fold against the host popcount; phase 39, ``aggregate_rows`` over 2^20 x
+64-word client rows and ``aggregate_eval_full`` of config 2's batch in
+both profiles against numpy and ``eval_full_batch``.  The kernels of
 those options (``prg_canon_kernel``, ``leaf_words_canon_kernel``,
 ``prg_bm_il_kernel``, ``fused_levels_bm_kernel``) are held against their
 plain versions and timed last (phases 30-31).  The leaf kernels
@@ -233,6 +245,29 @@ STREAM_LAUNCHES = {
 # batched queries; the selection expansion's launches per answer (compat nu
 # = 17; fast nu = 15, entry 10: prefix groups of 5 + 5 levels, a 5-level tail).
 PIR_ROWS, PIR_ROW_BYTES, PIR_Q = 1 << 24, 32, 1024
+# Phase 37, the dealer (bench_all.py:2416-2417): all three families at n=20
+# with K 1024 and 65,536, and the DCF at config 5's gate batch (n=32, K
+# 4096).  At K above GEN_SLICE a GEN_SLICE-key slice is compared with the
+# host tower on the same roots, and every key reconstructs at its alpha.
+GEN_CASES = (("compat", 20, 1024), ("fast", 20, 1024), ("dcf", 20, 1024),
+             ("compat", 20, 65536), ("fast", 20, 65536), ("dcf", 20, 65536),
+             ("dcf", 32, 4096))
+GEN_SLICE = 4096
+GEN_SOURCE = "dpf_tpu_torch/ops/csrc/chacha_gen.cu"
+# Phase 38, heavy hitters (bench_all.py:1440-1486, the cfg_apps section):
+# 16384 clients at n=16, 4 planted values x 320 clients, threshold 160, 4
+# levels a round, at most 4096 candidates; the count fold on 16384 x 512
+# random rows (bench_all.py:1595-1620).
+HH_G, HH_N, HH_PER, HH_Q_FOLD = 16384, 16, 320, 512
+HH_PLANTED = (5, 1234, (1 << 16) - 7, (1 << 16) // 3)
+# The kernels each descent mode launches, by profile.
+HH_KERNELS = {
+    ("compat", True): ("prg_canon_kernel",), ("compat", False): ("walk_bm_kernel",),
+    ("fast", True): ("fused_levels_kernel", "expand_tail_kernel"),
+    ("fast", False): ("walk_kernel",),
+}
+# Phase 39, aggregation (bench_all.py:1491-1524): 2^20 client rows x 64 words.
+AGG_ROWS, AGG_WORDS = 1 << 20, 64
 PIR_LAUNCHES = {
     "compat": {"prg_bm_kernel": 17, "leaf_words_bm_kernel": 1},
     "fast": {"fused_levels_kernel": 2, "expand_tail_kernel": 1},
@@ -320,8 +355,9 @@ def device_breakdown(fn, expect: str, attempts: int = 3
     """Run ``fn`` once under torch.profiler -> (host wall ms of the call,
     device span ms from the first device event's start to the last one's
     end, {device event name: (total device us, count)}) over kernels,
-    copies and memsets.  A trace without the kernel ``expect`` is taken
-    again, at most ``attempts`` times in all, each miss printed."""
+    copies and memsets.  A trace without a kernel whose name holds
+    ``expect`` is taken again, at most ``attempts`` times in all, each miss
+    printed."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, attempts + 1):
@@ -342,7 +378,7 @@ def device_breakdown(fn, expect: str, attempts: int = 3
             busy[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
             starts.append(evt.time_range.start)
             ends.append(evt.time_range.end)
-        if expect in busy:
+        if any(expect in name for name in busy):
             return wall_ms, (max(ends) - min(starts)) / 1e3, busy
         log(f"[profile] trace attempt {attempt} of {attempts} holds {len(starts)} device "
             f"events and no {expect}")
@@ -395,11 +431,11 @@ def device_breakdowns(fns: list, expects: list[str], attempts: int = 3) -> list[
             span_ms = (max(e.time_range.end for e in cluster)
                        - cluster[0].time_range.start) / 1e3
             out.append((wall_ms, span_ms, busy))
-        if len(clusters) == len(fns) and all(x in b for x, (_, _, b) in zip(expects, out)):
+        found = [any(x in name for name in b) for x, (_, _, b) in zip(expects, out)]
+        if len(clusters) == len(fns) and all(found):
             return out
         log(f"[profile] trace attempt {attempt} of {attempts}: {len(evts)} device events in "
-            f"{len(clusters)} clusters for {len(fns)} runs, expected kernels "
-            f"{[x in b for x, (_, _, b) in zip(expects, out)]}")
+            f"{len(clusters)} clusters for {len(fns)} runs, expected kernels {found}")
     raise AssertionError(f"torch.profiler did not record {expects} in {attempts} traces")
 
 
@@ -454,6 +490,7 @@ def _wrappers() -> dict:
         "walk_bm_kernel": aes_cuda.eval_points_walk_planes,
         "walk_kernel": chacha_cuda.walk,
         "walk_dcf_kernel": chacha_cuda.walk_dcf,
+        "gen_tower_cc_kernel": chacha_cuda.gen_tower,
     }
 
 
@@ -883,7 +920,7 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
     rng = np.random.default_rng(21)
     alphas = rng.integers(0, 1 << LOG_N, size=K, dtype=np.uint64)
     zero_launches()
-    ka, kb = fast.gen_batch(alphas, LOG_N, rng)
+    ka, kb = fast.gen_batch(alphas, LOG_N, rng, device="cpu")
     out_a = fast.eval_full_batch(ka)
     out_b = fast.eval_full_batch(kb)
     launches = read_launches()
@@ -905,7 +942,7 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
     #     prefix of 5 + 2 levels, n=24 (nu=15) one of 5 + 5 and a 5-level tail.
     for log_n, k in ((16, 256), (24, 64)):
         r = np.random.default_rng(log_n)
-        kk, _ = fast.gen_batch(r.integers(0, 1 << log_n, size=k, dtype=np.uint64), log_n, r)
+        kk, _ = fast.gen_batch(r.integers(0, 1 << log_n, size=k, dtype=np.uint64), log_n, r, device="cpu")
         dk = fast.DeviceKeysFast(kk, dev)
         before = read_launches()
         got = fast.eval_full_device(dk)
@@ -930,7 +967,7 @@ def fast_phases(dev, card: str, sm_clocks_per_s: float) -> list[dict]:
     # 14. The whole-tree route (nu < 7, and nu = 0) against the spec.
     for log_n, k in ((14, 3), (9, 5)):
         r = np.random.default_rng(log_n)
-        kk, _ = fast.gen_batch(r.integers(0, 1 << log_n, size=k, dtype=np.uint64), log_n, r)
+        kk, _ = fast.gen_batch(r.integers(0, 1 << log_n, size=k, dtype=np.uint64), log_n, r, device="cpu")
         before = read_launches()
         got = fast.eval_full_batch(kk)
         after = read_launches()
@@ -1066,7 +1103,7 @@ def fast_late_phases(dev, card: str, parent: str | None, rows: list[dict]) -> No
     #     spec, with the launches each plan lists.
     for log_n, k, cap in SUBTREE_CHECKS:
         r = np.random.default_rng(log_n + k)
-        kk, _ = fast.gen_batch(r.integers(0, 1 << log_n, size=k, dtype=np.uint64), log_n, r)
+        kk, _ = fast.gen_batch(r.integers(0, 1 << log_n, size=k, dtype=np.uint64), log_n, r, device="cpu")
         got, n_launch, wall = subtree_run(kk, cap)
         for i, key in enumerate(kk.to_bytes()):
             if got[i].tobytes() != chacha_np.eval_full(key, log_n):
@@ -1077,7 +1114,7 @@ def fast_late_phases(dev, card: str, parent: str | None, rows: list[dict]) -> No
     log_n, k = SUBTREE_BIG
     r = np.random.default_rng(0)
     alphas = np.arange(k, dtype=np.uint64) % np.uint64(1 << log_n)
-    kk, kq = fast.gen_batch(alphas, log_n, r)
+    kk, kq = fast.gen_batch(alphas, log_n, r, device="cpu")
     got, n_launch, wall = subtree_run(kk, mdc.MAX_LEAF_NODES)
     got_b, _, wall_b = subtree_run(kq, mdc.MAX_LEAF_NODES)
     if got.shape != (k, 1 << (log_n - 3)):
@@ -1097,7 +1134,7 @@ def fast_late_phases(dev, card: str, parent: str | None, rows: list[dict]) -> No
     #     turns with the parent checkout's build (parent, tree, tree,
     #     parent), each launched through the same ctypes calls.
     r = np.random.default_rng(21)
-    kk, _ = fast.gen_batch(r.integers(0, 1 << LOG_N, size=K, dtype=np.uint64), LOG_N, r)
+    kk, _ = fast.gen_batch(r.integers(0, 1 << LOG_N, size=K, dtype=np.uint64), LOG_N, r, device="cpu")
     dk = fast.DeviceKeysFast(kk, dev)
     entry, root = cc_cuda.entry_level(dk.nu), dk.root_state()
     tail_args = (mdc._prefix(cc_cuda.fused_levels, dk, entry), dk.scw[:, entry:],
@@ -1153,7 +1190,7 @@ def point_batch(gen, log_n: int, k: int, q: int, seed: int):
     """(alphas, party keys, xs uint64[k, q] random with xs[:, 0] = alphas)."""
     rng = np.random.default_rng(seed)
     alphas = rng.integers(0, 1 << log_n, size=k, dtype=np.uint64)
-    ka, kb = gen(alphas, log_n, rng)
+    ka, kb = gen(alphas, log_n, rng, device="cpu")
     xs = rng.integers(0, 1 << log_n, size=(k, q), dtype=np.uint64)
     xs[:, 0] = alphas
     return alphas, ka, kb, xs
@@ -1470,7 +1507,7 @@ def gate_traced(dev, card: str, sm_clocks_per_s: float) -> dict:
     xs[:, 0] = alphas
     xs[:, 1] = np.maximum(alphas, np.uint64(1)) - np.uint64(1)
     def lt_path():
-        keys = fast.dcf_gen_lt_batch(alphas, n, rng)
+        keys = fast.dcf_gen_lt_batch(alphas, n, rng, device="cpu")
         return (*keys, *(fast.dcf_eval_lt_points(k, xs) for k in keys))
 
     (ka, kb, sa, sb), launches = counted(f"dcf n={n}, {DCF_G} gates", lt_path,
@@ -1495,7 +1532,7 @@ def gate_traced(dev, card: str, sm_clocks_per_s: float) -> dict:
     lo, hi = interval_bounds(rng, DCF_IV_G)
     xs_iv = interval_queries(rng, lo, hi)
     def interval_path():
-        keys = fast.dcf_gen_interval_batch(lo, hi, n, rng)
+        keys = fast.dcf_gen_interval_batch(lo, hi, n, rng, device="cpu")
         return (*keys, *(fast.dcf_eval_interval_points(k, xs_iv) for k in keys))
 
     (ia, ib, ra, rb), _ = counted(f"dcf interval, {DCF_IV_G} gates", interval_path,
@@ -1552,7 +1589,7 @@ def gate_traced(dev, card: str, sm_clocks_per_s: float) -> dict:
         xs[:, 0] = alphas
         xs[:, 1] = np.maximum(alphas, np.uint64(1)) - np.uint64(1)
         def fss_lt_path():
-            keys = fss.gen_lt_batch(alphas, n, rng, profile)
+            keys = fss.gen_lt_batch(alphas, n, rng, profile, device="cpu")
             return (*keys, *(fss.eval_lt_points(k, xs) for k in keys))
 
         (ca, cb, sa, sb), _ = counted(f"{name} n={n}, {GATE_G} gates", fss_lt_path,
@@ -1564,7 +1601,7 @@ def gate_traced(dev, card: str, sm_clocks_per_s: float) -> dict:
         lo, hi = interval_bounds(rng, FSS_IV_G)
         xs_iv = interval_queries(rng, lo, hi)
         def fss_interval_path():
-            keys = fss.gen_interval_batch(lo, hi, n, rng, profile)
+            keys = fss.gen_interval_batch(lo, hi, n, rng, profile, device="cpu")
             return (*keys, *(fss.eval_interval_points(k, xs_iv) for k in keys))
 
         (ia, ib, ra, rb), _ = counted(f"{name} interval, {FSS_IV_G} gates",
@@ -1677,7 +1714,7 @@ def gate_checked(dev, card: str, sm_clocks_per_s: float, head: dict) -> list[dic
         rng = np.random.default_rng(27)
         alphas = rng.integers(0, 1 << n, size=GE_CHECK_K, dtype=np.uint64)
         alphas[0], alphas[1] = 0, (1 << n) - 1
-        ka, kb = gen(alphas, n, rng)
+        ka, kb = gen(alphas, n, rng, device="cpu")
         (ta, tb), _ = counted(f"ge_full {profile} n={n}, K={GE_CHECK_K}",
                               lambda: (fss.ge_full_from_dpf(ka), fss.ge_full_from_dpf(kb)),
                               expect)
@@ -1689,7 +1726,7 @@ def gate_checked(dev, card: str, sm_clocks_per_s: float, head: dict) -> list[dic
         log(f"[ge_full {profile}] n={n}, K={GE_CHECK_K}: both parties' tables XOR to "
             f"x >= alpha at every point of the domain")
         del rec, ta, tb
-        kk, _ = gen(rng.integers(0, 1 << n, size=GE_K, dtype=np.uint64), n, rng)
+        kk, _ = gen(rng.integers(0, 1 << n, size=GE_K, dtype=np.uint64), n, rng, device="cpu")
         dk = dk_cls(kk, dev)
 
         def device_fn():
@@ -1748,7 +1785,7 @@ def stream_phase(dev, card: str) -> None:
     rng = np.random.default_rng(35)
     alphas = rng.integers(0, 1 << LOG_N, size=K, dtype=np.uint64)
     for name, (gen, model, full_fn, kern) in profiles.items():
-        ka, kb = gen(alphas, LOG_N, rng)
+        ka, kb = gen(alphas, LOG_N, rng, device="cpu")
         full_a, full_b = full_fn(ka), full_fn(kb)
         ev = []
         blocks, _ = counted(f"{name} eval_full_stream n={LOG_N} K={K}",
@@ -1797,8 +1834,10 @@ def stream_phase(dev, card: str) -> None:
 
 
 def first_keys(kb, n: int):
-    """The batch's first n keys, as a batch of its own type."""
-    return type(kb)(kb.log_n, kb.seeds[:n], kb.ts[:n], kb.scw[:n], kb.tcw[:n], kb.fcw[:n])
+    """The batch's first n keys, as a batch of its own type (any key family:
+    its arrays in field order after log_n)."""
+    fields = ("seeds", "ts", "scw", "tcw", "fcw", "vcw", "fvcw")
+    return type(kb)(kb.log_n, *(getattr(kb, f)[:n] for f in fields if hasattr(kb, f)))
 
 
 def pir_phase(dev, card: str, seed: int) -> None:
@@ -1833,7 +1872,7 @@ def pir_phase(dev, card: str, seed: int) -> None:
                  pir._fast_expand_sel, fast.eval_full_batch, "expand_tail_kernel"),
     }
     for profile, (keys, expand, full_fn, kern) in profiles.items():
-        qa, qb = pir.pir_query(idx, PIR_ROWS, rng=rng, profile=profile)
+        qa, qb = pir.pir_query(idx, PIR_ROWS, rng=rng, profile=profile, device="cpu")
         modes = {"one-shot": (0, 1), "streamed": (None, 2)}
         servers, answers = {}, {}
         for mode, (chunk_bytes, slabs) in modes.items():
@@ -1909,6 +1948,315 @@ def pir_phase(dev, card: str, seed: int) -> None:
             log(f"[profile]   {us / 1e3:9.3f} ms {count:5d}x  {kname[:110]}")
         del servers, srv, sa, sel, sel8, db8, db8_rows
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The dealer, heavy hitters and aggregation on the card (phases 37-39)
+# ---------------------------------------------------------------------------
+
+
+def _gen_api(family: str):
+    """(batched gen, host tower, root draw, pointwise check) of a key
+    family; the check takes both parties' batches and xs uint64[K, Q] and
+    returns the reconstructed bits on the card."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.core import keys, keys_chacha
+    from dpf_tpu_torch.models import dcf
+
+    if family == "compat":
+        return (P.gen_batch, keys._gen_from_roots, keys._draw_roots,
+                lambda a, b, xs: P.eval_points_batch(a, xs) ^ P.eval_points_batch(b, xs))
+    if family == "fast":
+        return (fast.gen_batch, keys_chacha._gen_from_roots, keys_chacha._draw_roots,
+                lambda a, b, xs: fast.eval_points_batch(a, xs) ^ fast.eval_points_batch(b, xs))
+    return (fast.dcf_gen_lt_batch, dcf._gen_lt_from_roots, keys_chacha._draw_roots,
+            lambda a, b, xs: fast.dcf_eval_lt_points(a, xs) ^ fast.dcf_eval_lt_points(b, xs))
+
+
+def gen_tower_operands(family: str, log_n: int, k: int, seed: int, dev) -> tuple:
+    """The dealer kernel's operands for k keys drawn as the gen draws them."""
+    from dpf_tpu_torch.core import chacha_np, keys_chacha
+    from dpf_tpu_torch.models import keys_gen
+    from dpf_tpu_torch.ops.aes_bitslice import to_carrier
+
+    rng = np.random.default_rng(seed)
+    alphas = rng.integers(0, 1 << log_n, size=k, dtype=np.uint64)
+    s0, t0, s1, t1 = keys_chacha._draw_roots(k, rng)
+    bits = keys_gen._alpha_bits(alphas, log_n, chacha_np.nu_of(log_n))
+    ops = (s0, s1, t0.astype(np.uint32), t1.astype(np.uint32), np.ascontiguousarray(bits))
+    return tuple(to_carrier(a, dev) for a in ops) + (family == "dcf",)
+
+
+def dealer_phase(dev, card: str, sm_clocks_per_s: float) -> dict:
+    """Phase 37: the dealer of all three families on the card, through the
+    entry points (``gen_batch`` of both profiles, ``fast.dcf_gen_lt_batch``),
+    at GEN_CASES, launch counters zeroed just before and read just after the
+    dealing runs: every key byte-identical to the host tower on the same
+    roots (a GEN_SLICE-key slice at K 65,536, where every key also
+    reconstructs at its alpha through a pointwise walk on the card); one
+    traced fast deal first; keys/s on the card and on the host; then
+    ``gen_tower_cc_kernel`` against ``gen_tower_plain`` at every ChaCha case,
+    its time beside its bound, and its registers and spills.  -> the
+    kernels line's row."""
+    from dpf_tpu_torch.core import chacha_np
+    from dpf_tpu_torch.ops import build, chacha_cuda, op_count
+
+    # Where the time goes: one traced deal of each profile at n=20, K
+    # 65,536, before the heavy checks' many launches.
+    alphas = np.random.default_rng(370).integers(0, 1 << 20, size=65536, dtype=np.uint64)
+    for family, kern in (("fast", "gen_tower_cc_kernel"), ("compat", "prg_canon_kernel")):
+        gen = _gen_api(family)[0]
+        gen(alphas, 20, np.random.default_rng(0))  # warm the library
+        log_breakdown(card, f"{family} gen_batch n=20 K=65536",
+                      lambda: gen(alphas, 20, np.random.default_rng(0)), kern)
+
+    launches_total = Counter()
+    for family, log_n, k in GEN_CASES:
+        gen, host, draw, check = _gen_api(family)
+        seed = 3700 + log_n + k + len(family)
+        alphas = np.random.default_rng(seed).integers(0, 1 << log_n, size=k, dtype=np.uint64)
+        zero_launches()
+        t0 = time.perf_counter()
+        ka, kb = gen(alphas, log_n, np.random.default_rng(seed))
+        dev_s = time.perf_counter() - t0
+        launches = read_launches()
+        launches_total.update(launches)
+        nu = log_n - 7 if family == "compat" else chacha_np.nu_of(log_n)
+        want = ({"prg_canon_kernel": nu + 1} if family == "compat"
+                else {"gen_tower_cc_kernel": 1})
+        if launches != {**{n: 0 for n in launches}, **want}:
+            raise AssertionError(f"gen {family} n={log_n} K={k}: launches {launches}")
+        # The host tower on the same roots: all of them, or a slice.
+        n_host = min(k, GEN_SLICE)
+        s0, t0_, s1, t1 = draw(k, np.random.default_rng(seed))
+        t0 = time.perf_counter()
+        ha, hb = host(alphas[:n_host], log_n, s0[:n_host], t0_[:n_host], s1[:n_host],
+                      t1[:n_host])
+        host_s = time.perf_counter() - t0
+        for d, h in ((ka, ha), (kb, hb)):
+            if first_keys(d, n_host).to_bytes() != h.to_bytes():
+                raise AssertionError(f"gen {family} n={log_n} K={k}: keys != host tower")
+        # Every key reconstructs at its alpha (the DCF: 1{x < alpha} at
+        # alpha and below it).
+        xs = np.stack([alphas, np.maximum(alphas, np.uint64(1)) - np.uint64(1)], axis=1)
+        if family != "dcf":
+            xs[:, 1] = alphas ^ np.uint64(1)
+        want_bits = (xs < alphas[:, None]) if family == "dcf" else (xs == alphas[:, None])
+        if not np.array_equal(check(ka, kb, xs), want_bits.astype(np.uint8)):
+            raise AssertionError(f"gen {family} n={log_n} K={k}: keys do not reconstruct")
+        # keys/s on the card, end to end (roots drawn, tower, keys on the host).
+        dev_ms = host_ms(lambda: gen(alphas, log_n, np.random.default_rng(seed)), warmup=1,
+                         reps=3)
+        extra = ""
+        if family == "compat":
+            extra = (f"; compat tower: {launches['prg_canon_kernel']} prg_canon_kernel "
+                     f"launches, host {dev_ms:.3f} ms a deal")
+        log(f"[gen] {card}: {family} n={log_n} K={k}: {n_host} keys of both parties == the "
+            f"host tower on the same roots, all {k} reconstruct at alpha; card "
+            f"{k / dev_ms * 1e3:.1f} keys/s ({dev_ms:.3f} ms end to end, median of 3; first "
+            f"call {dev_s * 1e3:.3f} ms), host tower {n_host / host_s:.1f} keys/s "
+            f"({n_host} keys in {host_s * 1e3:.3f} ms){extra}")
+    log(f"[gen] launches over the dealing runs: {dict(launches_total)}")
+
+    # The kernel against its plain version at every ChaCha case, and times.
+    err, row = 0, None
+    for family, log_n, k in GEN_CASES:
+        if family == "compat":
+            continue
+        args = gen_tower_operands(family, log_n, k, 3800 + log_n + k, dev)
+        got, want = chacha_cuda.gen_tower(*args), chacha_cuda.gen_tower_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"gen_tower_cc_kernel != plain ({family} n={log_n} K={k})")
+            err = max(err, max_abs_err(g, w))
+        nu = chacha_np.nu_of(log_n)
+        k_ms = kernel_ms(lambda: chacha_cuda.gen_tower(*args))
+        e_ms = cuda_ms(lambda: chacha_cuda.gen_tower(*args))
+        p_ms = cuda_ms(lambda: chacha_cuda.gen_tower_plain(*args), warmup=1, reps=3)
+        ops = op_count.gen_tower_ops(nu, family == "dcf")
+        alu, total = (ops["LOP3"] + ops["SHF"]) * k, sum(ops.values()) * k
+        ops_ms = max(alu / LOP3_PER_SM_CLOCK, total / ISSUE_PER_SM_CLOCK) / sm_clocks_per_s * 1e3
+        nbytes = sum(4 * a.numel() for a in args[:5]) + sum(4 * g.numel() for g in got)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        log(f"[gen time] {card}: gen_tower_cc_kernel {family} n={log_n} K={k} (nu={nu}): "
+            f"== plain; kernel {k_ms:.4f} ms (queued; {e_ms:.4f} ms one call at a time), "
+            f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({k} keys of {2 * nu} expansions + "
+            f"2 leaf blocks = {dict(ops)} each: {alu:.4e} ALU-pipe at {LOP3_PER_SM_CLOCK}/clk/SM, "
+            f"{total:.4e} in all at {ISSUE_PER_SM_CLOCK}/clk/SM -> {ops_ms:.4f} ms; "
+            f"{nbytes:.4e} B -> {bytes_ms:.4f} ms)")
+        if (family, log_n, k) == ("fast", 20, 65536):
+            row = {"name": "gen_tower_cc_kernel", "route": "cuda", "source": GEN_SOURCE,
+                   "replaces": "dpf_tpu/models/keys_gen.py:171 (_gen_cc_body, XLA; no Pallas "
+                               "kernel)",
+                   "ms": k_ms, "event_ms": e_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                   "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                   "library_ms": None}
+    row.update(launches=launches_total["gen_tower_cc_kernel"], max_abs_err=err)
+    for kern, info in build.ptxas_report().items():
+        if "gen_tower_cc_kernel" in kern:
+            log(f"[build] {kern}: {info.get('registers')} registers, "
+                f"{info.get('stack_bytes')} B stack, {info.get('spill_store_bytes')} B spill "
+                f"stores, {info.get('spill_load_bytes')} B spill loads")
+    return row
+
+
+def hh_values(rng) -> np.ndarray:
+    """bench_all.py's client values: uniform, then 4 x HH_PER planted."""
+    vals = rng.integers(0, 1 << HH_N, size=HH_G, dtype=np.uint64)
+    for i, hv in enumerate(HH_PLANTED):
+        vals[i * HH_PER : (i + 1) * HH_PER] = hv
+    return vals
+
+
+def hh_phase(dev, card: str) -> dict[str, int]:
+    """Phase 38: heavy hitters of both profiles at bench_all.py's full size,
+    through ``gen_shares`` (262,144 keys dealt on the card) and
+    ``find_heavy_hitters`` with ``state=True`` (the incremental descent) and
+    ``state=False`` (stateless rounds), launch counters zeroed just before
+    and read just after each: both recover exactly the planted values with
+    exact counts and agree; the on-card count fold equals the host popcount
+    on a round's rows and on 16384 x 512 random rows.  -> the launches of
+    the descents."""
+    from dpf_tpu_torch.apps import heavy_hitters as hh
+    from dpf_tpu_torch.apps import hh_state
+    from dpf_tpu_torch.models import hh_fold
+    from dpf_tpu_torch.ops.aes_bitslice import to_carrier
+
+    thr = HH_PER // 2
+    descent_launches = Counter()
+    for profile in ("fast", "compat"):
+        rng = np.random.default_rng(24)
+        vals = hh_values(rng)
+        want = {int(v): int((vals == v).sum()) for v in HH_PLANTED}
+        zero_launches()
+        t0 = time.perf_counter()
+        sa, sb = hh.gen_shares(vals, HH_N, profile, rng=rng)
+        gen_s = time.perf_counter() - t0
+        log(f"[hh] {card}: {profile} gen_shares {HH_G} clients x {HH_N} levels = "
+            f"{HH_G * HH_N} keys a party on the card in {gen_s * 1e3:.3f} ms "
+            f"({HH_G * HH_N / gen_s:.1f} keys/s), launches {read_launches()}")
+        if profile == "fast":  # one traced incremental descent first
+            log_breakdown(card, "fast find_heavy_hitters (incremental)",
+                          lambda: hh.find_heavy_hitters(sa, sb, threshold=thr),
+                          "fused_levels_kernel")
+        results = {}
+        for state in (True, False):
+            hh.find_heavy_hitters(sa, sb, threshold=thr, state=state)  # warm
+            hh_state.PRG_EVALS.reset()
+            zero_launches()
+            t0 = time.perf_counter()
+            res = hh.find_heavy_hitters(sa, sb, threshold=thr, state=state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            descent_launches.update(launches)
+            mode = "incremental" if state else "stateless"
+            got = {int(v): int(c) for v, c in zip(res.values, res.counts)}
+            if got != want:
+                raise AssertionError(f"hh {profile} {mode}: found {got}, planted {want}")
+            for kern in HH_KERNELS[(profile, state)]:
+                if not launches[kern]:
+                    raise AssertionError(f"hh {profile} {mode}: no {kern} launch")
+            prg = sum(r.prg_level_evals for r in res.rounds)
+            results[state] = (got, prg, wall)
+            rounds = "; ".join(
+                f"depth {r.depth}: {r.n_candidates} candidates -> {r.n_survivors}, "
+                f"{r.key_evals / r.eval_s / 1e6:.2f} M key-evals/s" for r in res.rounds)
+            log(f"[hh] {card}: {profile} {mode}: the {len(got)} planted values with exact "
+                f"counts {got}; descent {wall * 1e3:.3f} ms (host clock), {prg} PRG level "
+                f"evaluations; rounds: {rounds}; launches "
+                f"{ {k: n for k, n in launches.items() if n} }")
+        if results[True][0] != results[False][0]:
+            raise AssertionError(f"hh {profile}: incremental != stateless")
+        log(f"[hh] {profile}: incremental == stateless; PRG level evaluations stateless / "
+            f"incremental = {results[False][1]} / {results[True][1]} = "
+            f"{results[False][1] / max(results[True][1], 1):.2f}x")
+        # The count fold on a round's rows: the first round's candidates.
+        cands = np.arange(16, dtype=np.uint64) << np.uint64(HH_N - 4)
+        ra = hh.eval_level_shares(sa, 3, cands)
+        rb = hh.eval_level_shares(sb, 3, cands)
+        dev_counts = hh.reconstruct_counts(ra, rb, 16, fold="device")
+        if not np.array_equal(dev_counts, hh.reconstruct_counts(ra, rb, 16, fold="host")):
+            raise AssertionError(f"hh {profile}: the card's count fold != host popcount")
+        del sa, sb
+    # bench_all.py's fold rows: 16384 clients x 512 candidates.
+    rows = np.random.default_rng(26).integers(0, 1 << 32, size=(HH_G, HH_Q_FOLD // 32),
+                                              dtype=np.uint64).astype(np.uint32)
+    zeros = np.zeros_like(rows)
+    host_counts = hh.reconstruct_counts(rows, zeros, HH_Q_FOLD, fold="host")
+    if not np.array_equal(hh.reconstruct_counts(rows, zeros, HH_Q_FOLD), host_counts):
+        raise AssertionError("hh: the card's count fold != host popcount on random rows")
+    x = to_carrier(rows, dev)
+    fold_ms = cuda_ms(lambda: hh_fold.count_fold_torch(x))
+    fold_e2e = host_ms(lambda: hh.reconstruct_counts(rows, zeros, HH_Q_FOLD))
+    host_fold = host_ms(lambda: hh.reconstruct_counts(rows, zeros, HH_Q_FOLD, fold="host"),
+                        warmup=0, reps=3)
+    log(f"[hh time] {card}: count fold of {HH_G} clients x {HH_Q_FOLD} candidates == host "
+        f"popcount; on the card {fold_ms:.3f} ms (CUDA events; {fold_e2e:.3f} ms end to end "
+        f"with the XOR and the copies), host popcount {host_fold:.3f} ms")
+    log(f"[hh] launches over the four descents: "
+        f"{ {k: n for k, n in descent_launches.items() if n} }")
+    return dict(descent_launches)
+
+
+def agg_phase(dev, card: str) -> None:
+    """Phase 39: secure aggregation on the card: ``aggregate_rows`` over
+    2^20 client rows x 64 words (256 MB) in both folds against numpy, at
+    the 4 MiB chunk default; ``aggregate_eval_full`` of a config-2 batch
+    (n=20, K 1024) in both profiles against the folds of
+    ``eval_full_batch``'s rows, both aggregators' XOR folds reconstructing
+    the presence bitmap."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.apps import aggregation as agg
+
+    rows = np.random.default_rng(39).integers(0, 1 << 32, size=(AGG_ROWS, AGG_WORDS),
+                                              dtype=np.uint64).astype(np.uint32)
+    step = agg.chunk_rows(AGG_WORDS)
+    n_chunks = -(-AGG_ROWS // step)
+    for op, ref in (("xor", np.bitwise_xor.reduce(rows, axis=0)),
+                    ("add", rows.astype(np.uint64).sum(0).astype(np.uint32))):
+        if not np.array_equal(agg.aggregate_rows(rows, op), ref):
+            raise AssertionError(f"agg {op}: fold != numpy")
+        ms = host_ms(lambda: agg.aggregate_rows(rows, op), warmup=0, reps=3)
+        log(f"[agg] {card}: {op} fold of {AGG_ROWS} client rows x {AGG_WORDS} words == numpy; "
+            f"{n_chunks} chunks of {step} rows; {ms:.3f} ms end to end (host clock, median "
+            f"of 3): {AGG_ROWS / ms / 1e3:.2f} Mshares/s")
+    del rows
+    rng = np.random.default_rng(390)
+    alphas = rng.integers(0, 1 << LOG_N, size=K, dtype=np.uint64)
+    for profile, gen, full in (("compat", P.gen_batch, P.eval_full_batch),
+                               ("fast", fast.gen_batch, fast.eval_full_batch)):
+        ka, kb = gen(alphas, LOG_N, rng)
+        if profile == "fast":  # traced before its checks
+            agg.aggregate_eval_full(ka, "xor")
+            log_breakdown(card, "fast aggregate_eval_full xor n=20 K=1024",
+                          lambda: agg.aggregate_eval_full(ka, "xor"), "expand_tail_kernel")
+        words = [full(k).view("<u4") for k in (ka, kb)]
+        for op in agg.OPS:
+            zero_launches()
+            folds = [agg.aggregate_eval_full(k, op) for k in (ka, kb)]
+            launches = {k: n for k, n in read_launches().items() if n}
+            for f, w in zip(folds, words):
+                ref = (np.bitwise_xor.reduce(w, axis=0) if op == "xor"
+                       else w.astype(np.uint64).sum(0).astype(np.uint32))
+                if not np.array_equal(f, ref):
+                    raise AssertionError(f"agg {profile} {op}: eval_full fold != numpy")
+            if op == "xor":
+                bitmap = np.unpackbits(agg.reconstruct(*folds, op).view(np.uint8),
+                                       bitorder="little")
+                counts = np.bincount(alphas.astype(np.int64), minlength=1 << LOG_N)
+                if not np.array_equal(bitmap, counts % 2):
+                    raise AssertionError(f"agg {profile}: folds != the presence bitmap")
+            ms = host_ms(lambda: agg.aggregate_eval_full(ka, op), warmup=0, reps=3)
+            log(f"[agg] {card}: {profile} aggregate_eval_full {op} n={LOG_N} K={K} == the "
+                f"{op} fold of eval_full_batch's rows{' and reconstructs the presence bitmap' if op == 'xor' else ''}; "
+                f"{-(-K // agg.chunk_rows(1 << (LOG_N - 5)))} chunks a party, launches over both "
+                f"parties {launches}; {ms:.3f} ms end to end: {K / ms / 1e3:.4f} Mshares/s")
+        del words
 
 
 def main() -> int:
@@ -1997,7 +2345,7 @@ def main() -> int:
     rng = np.random.default_rng(20)
     alphas = rng.integers(0, 1 << LOG_N, size=K, dtype=np.uint64)
     zero_launches()
-    ka, kb = P.gen_batch(alphas, LOG_N, rng)
+    ka, kb = P.gen_batch(alphas, LOG_N, rng, device="cpu")
     out_a = P.eval_full_batch(ka)
     out_b = P.eval_full_batch(kb)
     launches = read_launches()
@@ -2018,7 +2366,7 @@ def main() -> int:
 
     # 6. Kernel path against plain path on the card.
     rng = np.random.default_rng(16)
-    k16, _ = P.gen_batch(rng.integers(0, 1 << 16, size=256, dtype=np.uint64), 16, rng)
+    k16, _ = P.gen_batch(rng.integers(0, 1 << 16, size=256, dtype=np.uint64), 16, rng, device="cpu")
     dk16 = mdpf.DeviceKeys(k16, dev)
     if not torch.equal(mdpf.eval_full_device(dk16), mdpf.eval_full_device(dk16, impl="plain")):
         raise AssertionError("kernel path != plain path at n=16, K=256")
@@ -2091,6 +2439,11 @@ def main() -> int:
     # Streaming and PIR, traced before the plain versions' many launches.
     stream_phase(dev, card)
     pir_phase(dev, card, args.seed)
+    # The dealer, heavy hitters and aggregation, each traced before its
+    # heavy checks.
+    rows_out.append(dealer_phase(dev, card, n_sm * clock_hz))
+    hh_phase(dev, card)
+    agg_phase(dev, card)
     rows_out += point_checked(dev, card, n_sm * clock_hz, point_head)
     rows_out += gate_checked(dev, card, n_sm * clock_hz, gate_head)
     # The option kernels' plain versions run last: traces after many small

@@ -28,7 +28,8 @@ Reference-parity scalar API (dpf/dpf.go: Gen, Eval, EvalFull):
 
 Batch API:
 
-    kba, kbb = dpf_tpu_torch.gen_batch(alphas, log_n)   # host, vectorized
+    kba, kbb = dpf_tpu_torch.gen_batch(alphas, log_n)   # the card's dealer
+    kba, kbb = dpf_tpu_torch.gen_batch(alphas, log_n, device="cpu")  # host tower
     out      = dpf_tpu_torch.eval_full_batch(kba)       # uint8[K, 2^(n-3)]
     out      = dpf_tpu_torch.eval_full_batch(kba, backend="pallas", fuse=None)
     bits     = dpf_tpu_torch.eval_points_batch(kba, xs)  # xs uint64[K, Q] -> uint8[K, Q]
@@ -37,15 +38,23 @@ Batch API:
 FSS comparison and interval gates over level-grouped DPFs of either
 profile (``dpf_tpu_torch.fss``, ``models/fss.py``):
 
-    ca, cb = fss.gen_lt_batch(alphas, log_n)          # 1{x < alpha} shares
-    ia, ib = fss.gen_interval_batch(lo, hi, log_n)    # 1{lo <= x <= hi}
+    ca, cb = fss.gen_lt_batch(alphas, log_n)          # 1{x < alpha} shares, the card
+    ia, ib = fss.gen_interval_batch(lo, hi, log_n)    # 1{lo <= x <= hi}, the card
     shares = fss.eval_lt_points(ca, xs)               # the card
     table  = fss.ge_full_from_dpf(kba)                # 1{x >= alpha}, whole domain
 
-One-key-per-gate comparison (DCF) is in :mod:`dpf_tpu_torch.fast`.
+One-key-per-gate comparison (DCF) is in :mod:`dpf_tpu_torch.fast`.  The
+heavy-hitter descent and the secure aggregation folds are in
+:mod:`dpf_tpu_torch.apps`.
 
-Device evaluation runs on the card (``device=None`` means ``"cuda"``) and
-raises without one, unless the caller passes ``device="cpu"``.
+Batched Gen (``gen_batch`` of both profiles, the DCF and FSS gens,
+``pir.pir_query``, ``apps.heavy_hitters.gen_shares``) draws its root seeds
+on the host and runs its correction-word tower on the card
+(``models/keys_gen.py``; ``ops/csrc/chacha_gen.cu`` for the ChaCha
+families); ``device="cpu"`` runs the host tower, with the same bytes.
+Device evaluation, and Gen, run on the card (``device=None`` means
+``"cuda"``) and raise without one, unless the caller passes
+``device="cpu"``.  Nothing falls back to the host.
 """
 
 from __future__ import annotations

@@ -1,12 +1,14 @@
 """Bit-packed output contract: the packed layout of pointwise evaluation.
 
-The port's copy of ``dpf_tpu/core/bitpack.py`` (its numpy helpers, and torch
-counterparts of its device packers; the wire helpers wait for the sidecar):
+The port's copy of ``dpf_tpu/core/bitpack.py`` (its numpy helpers, its wire
+helpers, and torch counterparts of its device packers):
 
     word layout   uint32[..., ceil(Q/32)]: query q -> word q // 32,
                   bit q % 32 (LSB-first within the word)
     byte layout   the little-endian view of those words: query q ->
                   byte q // 8, bit q % 8 (the reference's EvalFull order)
+    wire rows     ceil(Q/8) bytes per row (the trailing word's spare
+                  bytes are dropped on the wire)
     tail bits     bits >= Q in the last word are ZERO (padded queries
                   evaluate garbage; producers mask them)
 
@@ -25,6 +27,11 @@ import torch
 def packed_words(q: int) -> int:
     """Words per row of a packed [.., Q] output: ceil(Q / 32)."""
     return -(-int(q) // 32)
+
+
+def packed_bytes(q: int) -> int:
+    """Wire bytes per row of a packed [.., Q] output: ceil(Q / 8)."""
+    return -(-int(q) // 8)
 
 
 def empty_rows(rows: int, q: int, packed: bool) -> np.ndarray:
@@ -78,6 +85,30 @@ def byte_rows_to_words(rows: np.ndarray, q: int) -> np.ndarray:
     return np.ascontiguousarray(rows).view("<u4")
 
 
+def words_to_wire_rows(words: np.ndarray, q: int) -> np.ndarray:
+    """uint32[K, W] packed words -> contiguous uint8[K, ceil(q/8)] wire rows
+    (tail bits masked)."""
+    w = np.ascontiguousarray(mask_tail(np.asarray(words, dtype=np.uint32), q))
+    rows = w.view("<u1").reshape(w.shape[0], -1)[:, : packed_bytes(q)]
+    return np.ascontiguousarray(rows)
+
+
+def words_to_wire(words: np.ndarray, q: int) -> bytes:
+    """uint32[K, W] packed words -> the wire blob: K rows of ceil(q/8)
+    bytes, concatenated."""
+    return words_to_wire_rows(words, q).tobytes()
+
+
+def wire_to_words(data: bytes, k: int, q: int) -> np.ndarray:
+    """Wire blob (k rows x ceil(q/8) bytes) -> uint32[k, ceil(q/32)]."""
+    rb = packed_bytes(q)
+    rows = np.frombuffer(bytes(data), np.uint8).reshape(k, rb)
+    pad = packed_words(q) * 4 - rb
+    if pad:
+        rows = np.concatenate([rows, np.zeros((k, pad), np.uint8)], axis=1)
+    return np.ascontiguousarray(rows).view("<u4")
+
+
 @functools.cache
 def _lane_bits(device: torch.device) -> torch.Tensor:
     """int32[32]: 1 << l, lane 31 as the carrier of 0x80000000; made once
@@ -107,3 +138,10 @@ def pack_bits_qmajor_torch(bits: torch.Tensor) -> torch.Tensor:
         bits = torch.nn.functional.pad(bits, (0, 0, 0, pad))
     b = bits.reshape(bits.shape[0] // 32, 32, k) * _lane_bits(bits.device)[None, :, None]
     return b.sum(1, dtype=torch.int32).T.contiguous()
+
+
+def unpack_bits_torch(words: torch.Tensor, q: int) -> torch.Tensor:
+    """Device unpack: int32 carriers [..., W] -> 0/1 uint8 [..., q]."""
+    sh = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = ((words[..., :, None] >> sh) & 1).to(torch.uint8)
+    return bits.reshape(words.shape[:-1] + (-1,))[..., : int(q)]

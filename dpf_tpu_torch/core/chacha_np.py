@@ -187,7 +187,7 @@ def gen(
     with the ChaCha PRG and 512-bit leaves."""
     from .keys_chacha import gen_batch
 
-    ka, kb = gen_batch(np.array([alpha], dtype=np.uint64), log_n, rng=rng)
+    ka, kb = gen_batch(np.array([alpha], dtype=np.uint64), log_n, rng=rng, device="cpu")
     return ka.to_bytes()[0], kb.to_bytes()[0]
 
 

@@ -12,9 +12,11 @@ module converts between that format and
     fcw    uint32[K, 4]       final output correction word
 
 Gen draws its root seeds on the host (the CSPRNG boundary, reference
-dpf/dpf.go:80-81) and runs the correction-word tower as a host loop that is
-vectorized across the key batch.  The draw order is the JAX package's, so the
-same ``rng`` gives the same key bytes in both packages.
+dpf/dpf.go:80-81) and runs the correction-word tower on the card by default
+(``models/keys_gen.gen_device_compat``), or, with ``device="cpu"``, as a
+host loop vectorized across the key batch (:func:`_gen_from_roots`).  The
+draw order is the JAX package's, so the same ``rng`` gives the same key
+bytes in both packages and on both devices.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from . import aes_np, spec
+from .device import resolve_device
 
 
 @dataclass
@@ -121,18 +124,27 @@ def gen_batch(
     alphas: np.ndarray | list[int],
     log_n: int,
     rng: np.random.Generator | None = None,
+    *,
+    device=None,
 ) -> tuple[KeyBatch, KeyBatch]:
-    """Generate key pairs for a whole batch of points at once, on the host.
+    """Generate key pairs for a whole batch of points at once.
 
     Mirror of the reference Gen (dpf/dpf.go:71-169).  ``rng=None`` draws the
     root seeds from OS entropy; a seeded ``np.random.Generator`` gives the
-    same key bytes as ``dpf_tpu.gen_batch`` with an equal generator."""
+    same key bytes as ``dpf_tpu.gen_batch`` with an equal generator.  The
+    tower runs on ``device``: None is the card (``keys_gen.
+    gen_device_compat``), ``"cpu"`` the host tower; the bytes are the same."""
     alphas = np.asarray(alphas, dtype=np.uint64)
     K = alphas.shape[0]
     if log_n > 63 or (alphas >= (np.uint64(1) << np.uint64(log_n))).any():
         raise ValueError("dpf: invalid parameters")
+    dev = resolve_device(device)
     s0, t0, s1, t1 = _draw_roots(K, rng)
-    return _gen_from_roots(alphas, log_n, s0, t0, s1, t1)
+    if dev.type == "cpu":
+        return _gen_from_roots(alphas, log_n, s0, t0, s1, t1)
+    from ..models import keys_gen
+
+    return keys_gen.gen_device_compat(alphas, log_n, s0, t0, s1, t1, device=dev)
 
 
 def _gen_from_roots(

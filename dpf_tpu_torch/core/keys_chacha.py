@@ -1,10 +1,9 @@
 """Batched key handling for the ChaCha fast profile.
 
-The port's counterpart of ``dpf_tpu/models/keys_chacha.py`` (host tower
-only: the device dealer waits for its own slice).  Struct-of-arrays form of
-the fast-profile key layout (core/chacha_np.py): 128-bit seeds, 18-byte
-per-level CWs (the reference's CW shape, dpf/dpf.go:111-112), a 64-byte
-final CW for the 512-bit leaf:
+The port's counterpart of ``dpf_tpu/models/keys_chacha.py``.
+Struct-of-arrays form of the fast-profile key layout (core/chacha_np.py):
+128-bit seeds, 18-byte per-level CWs (the reference's CW shape,
+dpf/dpf.go:111-112), a 64-byte final CW for the 512-bit leaf:
 
     seeds  uint32[K, 4]       root seeds
     ts     uint8[K]           root control bits
@@ -12,9 +11,11 @@ final CW for the 512-bit leaf:
     tcw    uint8[K, nu, 2]    per-level (tLCW, tRCW)
     fcw    uint32[K, 16]      final output correction word
 
-Gen draws its root seeds on the host and runs the correction-word tower as
-a host loop vectorized across the key batch.  The draw order is the JAX
-package's, so the same ``rng`` gives the same key bytes in both packages.
+Gen draws its root seeds on the host and runs the correction-word tower on
+the card by default (one ``gen_tower`` launch, ``models/keys_gen.py``), or,
+with ``device="cpu"``, as a host loop vectorized across the key batch.  The
+draw order is the JAX package's, so the same ``rng`` gives the same key
+bytes in both packages and on both devices.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from . import chacha_np as cc
+from .device import resolve_device
 
 
 @dataclass
@@ -127,15 +129,24 @@ def gen_batch(
     alphas: np.ndarray | list[int],
     log_n: int,
     rng: np.random.Generator | None = None,
+    *,
+    device=None,
 ) -> tuple[KeyBatchFast, KeyBatchFast]:
-    """Fast-profile Gen on the host: root seeds drawn, then the
-    correction-word tower of :func:`_gen_from_roots`."""
+    """Fast-profile Gen: root seeds drawn on the host, then the
+    correction-word tower on ``device``: None is the card (one
+    ``gen_tower`` launch), ``"cpu"`` the host tower of
+    :func:`_gen_from_roots`; the bytes are the same."""
     alphas = np.asarray(alphas, dtype=np.uint64)
     K = alphas.shape[0]
     if log_n > 63 or (alphas >> np.uint64(log_n)).any():
         raise ValueError("dpf-fast: invalid parameters")
+    dev = resolve_device(device)
     s0, t0, s1, t1 = _draw_roots(K, rng)
-    return _gen_from_roots(alphas, log_n, s0, t0, s1, t1)
+    if dev.type == "cpu":
+        return _gen_from_roots(alphas, log_n, s0, t0, s1, t1)
+    from ..models import keys_gen
+
+    return keys_gen.gen_device_cc("fast", alphas, log_n, s0, t0, s1, t1, device=dev)
 
 
 def _gen_from_roots(

@@ -9,19 +9,21 @@ reference's, which pins fixed-key AES-128-MMO (dpf/dpf.go:22-44).
     bit    = fast.Eval(ka, x, log_n)             # host
     out    = fast.EvalFull(ka, log_n)            # the card
 
-    kba, kbb = fast.gen_batch(alphas, log_n)     # host, vectorized
+    kba, kbb = fast.gen_batch(alphas, log_n)     # the card (gen_tower_cc_kernel)
     leaves   = fast.eval_full_batch(kba)         # uint8[K, max(2^(n-3), 64)]
     bits     = fast.eval_points_batch(kba, xs)   # xs uint64[K, Q] -> uint8[K, Q]
 
 One key per comparison gate (DCF, ``models/dcf.py``):
 
-    ca, cb = fast.dcf_gen_lt_batch(alphas, log_n)        # host
+    ca, cb = fast.dcf_gen_lt_batch(alphas, log_n)        # the card
     shares = fast.dcf_eval_lt_points(ca, xs)             # 1{x < alpha} shares
-    ia, ib = fast.dcf_gen_interval_batch(lo, hi, log_n)  # host
+    ia, ib = fast.dcf_gen_interval_batch(lo, hi, log_n)  # the card
     shares = fast.dcf_eval_interval_points(ia, xs)       # 1{lo <= x <= hi}
 
-Gen and Eval run on the host through the numpy spec.  Full-domain,
-pointwise and DCF evaluation run on the card (``device=None`` means
+Gen and Eval run on the host through the numpy spec.  The batched gens run
+their tower on the card (``models/keys_gen.py``; ``device="cpu"``: the host
+tower, the same bytes).  Full-domain, pointwise and DCF evaluation run on
+the card (``device=None`` means
 ``"cuda"``) through the kernels of ``ops/chacha_cuda.py`` and raise without
 one, unless the caller passes ``device="cpu"``.  The FSS gates over
 level-grouped DPFs of either profile are ``dpf_tpu_torch.fss``.

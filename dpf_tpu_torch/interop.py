@@ -4,10 +4,11 @@ The key bytes are the interchange format; :func:`from_jax_keybatch` takes the
 numpy arrays of a ``dpf_tpu`` ``KeyBatch`` (its ``log_n``, ``seeds``, ``ts``,
 ``scw``, ``tcw`` and ``fcw`` fields) and returns the port's ``KeyBatch``
 without importing anything of ``dpf_tpu``; :func:`from_jax_keybatch_fast`
-does the same for a fast-profile ``KeyBatchFast``, and
+does the same for a fast-profile ``KeyBatchFast``,
 :func:`from_jax_dcfkeybatch` for a ``DcfKeyBatch`` (plus its ``vcw`` and
-``fvcw``).  The FSS gate batches are made of ordinary key batches and
-convert through the first two.
+``fvcw``), and :func:`from_jax_hhshare` for a heavy-hitters ``HHShare``.  The FSS gate
+batches are made of ordinary key batches and convert through the first
+two.
 """
 
 from __future__ import annotations
@@ -75,3 +76,15 @@ def _checked_copies(want: dict) -> dict:
             )
         arrays[name] = a.copy()
     return arrays
+
+
+def from_jax_hhshare(log_n, profile, seeds, ts, scw, tcw, fcw):
+    """The port's ``apps.heavy_hitters.HHShare`` over copies of a ``dpf_tpu``
+    HHShare's ``levels`` arrays (level-major, ``log_n * G`` keys), in its
+    ``profile`` (``"compat"`` or ``"fast"``)."""
+    from .apps.heavy_hitters import HHShare
+
+    convert = {"compat": from_jax_keybatch, "fast": from_jax_keybatch_fast}.get(profile)
+    if convert is None:
+        raise ValueError(f"heavy_hitters: unknown profile {profile!r}")
+    return HHShare(int(log_n), convert(log_n, seeds, ts, scw, tcw, fcw), profile)

@@ -23,10 +23,11 @@ Gilboa, Ishai, "Function Secret Sharing: Improvements and Extensions", CCS
 Key layout (to_bytes, per key): seed(16) | t(1) | nu * (sCW(16) | tL(1) |
 tR(1) | VCW(1)) | FVCW(64) -> 81 + 19 nu bytes.
 
-Gen runs on the host: the roots are drawn (``core/keys_chacha._draw_roots``)
-and the tower runs as a numpy loop batched over the gates, the JAX
-package's host route, so the same ``rng`` gives the same key bytes.  The
-JAX package's device dealer (``keys_gen``) waits for its own slice.
+Gen draws the roots on the host (``core/keys_chacha._draw_roots``) and runs
+the tower on the card by default (one ``gen_tower`` launch,
+``models/keys_gen.py``), or, with ``device="cpu"``, as a numpy loop batched
+over the gates, the JAX package's host route; the same ``rng`` gives the
+same key bytes on both.
 Evaluation is one ``walk_dcf`` launch per call (``ops/chacha_cuda.py``,
 kernel ``csrc/chacha_walk.cu::walk_dcf_kernel``) for any K and Q; the JAX
 package takes its kernel only for K % 128 == 0 on the TPU and its XLA body
@@ -131,26 +132,36 @@ def key_len(log_n: int) -> int:
 def _lt_leaf_mask(low: np.ndarray) -> np.ndarray:
     """uint64[K] in-leaf thresholds -> uint32[K, 16] blocks with bits
     j < low set (LSB-first within words, ascending words)."""
-    j = np.arange(cc.LEAF_BITS, dtype=np.uint64)
-    bits = (j[None, :] < low[:, None]).astype(np.uint8)
-    w = bits.reshape(-1, 16, 32).astype(np.uint32)
-    return (w << np.arange(32, dtype=np.uint32)).sum(-1, dtype=np.uint32)
+    low = np.asarray(low, dtype=np.int64)[:, None]
+    base = 32 * np.arange(cc.LEAF_BITS // 32, dtype=np.int64)[None, :]
+    n = np.clip(low - base, 0, 32)  # bits of each word below low
+    return np.where(n == 32, np.uint32(0xFFFFFFFF),
+                    ((np.uint64(1) << n.astype(np.uint64)) - np.uint64(1)).astype(np.uint32))
 
 
 def gen_lt_batch(
     alphas: np.ndarray | list[int],
     log_n: int,
     rng: np.random.Generator | None = None,
+    *,
+    device=None,
 ) -> tuple[DcfKeyBatch, DcfKeyBatch]:
-    """Vectorized DCF Gen for K gates ``1{x < alpha}`` -> (key_a, key_b), on
-    the host: both parties' roots drawn (one 2K draw, party A first), then
-    the tower of :func:`_gen_lt_from_roots`."""
+    """Vectorized DCF Gen for K gates ``1{x < alpha}`` -> (key_a, key_b):
+    both parties' roots drawn on the host (one 2K draw, party A first), then
+    the tower on ``device``: None is the card (one ``gen_tower`` launch),
+    ``"cpu"`` the host tower of :func:`_gen_lt_from_roots`; the bytes are
+    the same."""
     alphas = np.asarray(alphas, dtype=np.uint64)
     K = alphas.shape[0]
     if log_n > 63 or log_n < 1 or (alphas >> np.uint64(log_n)).any():
         raise ValueError("dcf: invalid parameters")
+    dev = resolve_device(device)
     s0, t0, s1, t1 = _draw_roots(K, rng)
-    return _gen_lt_from_roots(alphas, log_n, s0, t0, s1, t1)
+    if dev.type == "cpu":
+        return _gen_lt_from_roots(alphas, log_n, s0, t0, s1, t1)
+    from . import keys_gen
+
+    return keys_gen.gen_device_cc("dcf", alphas, log_n, s0, t0, s1, t1, device=dev)
 
 
 def _gen_lt_from_roots(
@@ -327,15 +338,17 @@ def gen_interval_batch(
     hi: np.ndarray | list[int],
     log_n: int,
     rng: np.random.Generator | None = None,
+    *,
+    device=None,
 ):
     """K interval gates ``1{lo <= x <= hi}`` from TWO DCFs per gate
     (``lt_{hi+1} ^ lt_{lo}``; the ``hi = 2^n - 1`` wrap edge becomes an
     always-0 upper gate plus a public constant on party A).  Returns two
     (upper, lower, const) triples, upper drawn first; evaluate with
-    :func:`eval_interval_points`."""
+    :func:`eval_interval_points`.  ``device`` as in :func:`gen_lt_batch`."""
     upper_alpha, lo, const_a, const_b = _interval_alphas(lo, hi, log_n, "dcf")
-    ua, ub = gen_lt_batch(upper_alpha, log_n, rng=rng)
-    la, lb = gen_lt_batch(lo, log_n, rng=rng)
+    ua, ub = gen_lt_batch(upper_alpha, log_n, rng=rng, device=device)
+    la, lb = gen_lt_batch(lo, log_n, rng=rng, device=device)
     return (ua, la, const_a), (ub, lb, const_b)
 
 

@@ -660,3 +660,66 @@ def eval_points_level_grouped(
     words = _grouped_walk_body(kb.nu, n, groups, G, *_point_masks(kb, dev), xs_hi,
                                xs_lo, reduce, walk)
     return _finish_words(words, Q, packed)
+
+
+# ---------------------------------------------------------------------------
+# Incremental heavy-hitter frontier extension (apps/hh_state.py): the
+# compat twin of models/dpf_chacha.py's hh bodies (see there for the
+# control-bit invariant).  State stays in the bitsliced plane layout
+# ([128, F, Kp] seeds, [F, Kp] key-packed control words); the emitted rows
+# go to the client-major packed layout on the device.
+# ---------------------------------------------------------------------------
+
+
+def _keywords_to_rows(Tq: torch.Tensor) -> torch.Tensor:
+    """Key-packed bit words int32[Q, Kp] (key k at word k // 32, bit k % 32)
+    -> client-major packed rows int32[Kp * 32, ceil(Q/32)] (the core/bitpack
+    output contract)."""
+    bits = bitpack.unpack_bits_torch(Tq, Tq.shape[1] * 32).to(torch.int32)  # [Q, K]
+    return bitpack.pack_bits_qmajor_torch(bits)
+
+
+def hh_leaf_fold_planes(C: torch.Tensor, m: int, ibits: int) -> torch.Tensor:
+    """Fold converted leaf planes to depth-``m`` intra-leaf predicate bits.
+    C int32[128, A, Kp] (plane x = leaf value bit x, key-packed); only
+    planes < 2**ibits are populated (ibits = log_n - nu <= 7).  Returns
+    int32[2**m, A, Kp]: entry v = XOR of planes [v * s, (v + 1) * s),
+    s = 2**(ibits - m)."""
+    s = (1 << ibits) >> m
+    w = C[: 1 << ibits].reshape(1 << m, s, C.shape[1], C.shape[2])
+    return _fold(w.movedim(1, 0), torch.bitwise_xor)
+
+
+def _hh_extend_body(S, T, sel, cw_plane, tl_w, tr_w):
+    """One incremental frontier level: gather the surviving parent columns
+    (public ``sel`` int64[F]) from the carried [128, ., Kp] / [., Kp] state
+    and expand one level through the canonical PRG kernel -> new state
+    ([128, 2F, Kp], [2F, Kp]) + client-major packed rows int32[Kp * 32,
+    2F / 32]."""
+    Sg = S.index_select(1, sel)
+    Tg = T.index_select(0, sel)
+    S2, T2 = _level_step(Sg, Tg, cw_plane, tl_w, tr_w, prg_planes_canon)
+    return S2, T2, _keywords_to_rows(T2)
+
+
+def _hh_leaf_first_body(ibits, S, T, sel, fcw_planes):
+    """Frontier crossing into the leaf: convert the surviving depth-nu
+    columns once (the leaf MMO is the canonical PRG kernel's L half) ->
+    resident plane state int32[128, F, Kp] + the m=1 split rows
+    int32[Kp * 32, 2F / 32], in (parent, bit) order."""
+    Sg = S.index_select(1, sel)
+    Tg = T.index_select(0, sel)
+    C = prg_planes_canon(Sg.reshape(128, -1))[0].view(Sg.shape)
+    C = C ^ (fcw_planes & Tg[None])
+    B = hh_leaf_fold_planes(C, 1, ibits)  # [2, F, Kp]
+    return C, _keywords_to_rows(B.movedim(0, 1).reshape(-1, B.shape[2]))
+
+
+def _hh_leaf_fold_body(m, ibits, C, idx):
+    """Intra-leaf frontier level m >= 2: fold the resident plane state
+    (reused by deeper rounds) and gather the requested children (public
+    ``idx`` int64[Q] = anc * 2**m + v) -> packed rows int32[Kp * 32,
+    Q / 32]."""
+    B = hh_leaf_fold_planes(C, m, ibits)
+    flat = B.movedim(0, 1).reshape(-1, B.shape[2])
+    return _keywords_to_rows(flat.index_select(0, idx))

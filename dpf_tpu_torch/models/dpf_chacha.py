@@ -62,12 +62,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import bitpack
 from ..core import chacha_np as cc
 from ..core.device import resolve_device
 from ..core.keys_chacha import KeyBatchFast, _pad_fast_batch
 from ..core.stream import chunk_levels, stream_chunks
 from ..ops import chacha_cuda as cp
 from ..ops.aes_bitslice import from_carrier, lshr, to_carrier
+from ..ops.aes_cuda import _fold
 from .dpf import _cached_device_keys, _split_words
 
 
@@ -511,3 +513,79 @@ def eval_points_level_grouped(
     dev = resolve_device(device)
     return cp.eval_points_walk(kb, xs, groups=groups, reduce=reduce, packed=packed,
                                device=dev, walk_fn=walk)
+
+
+# ---------------------------------------------------------------------------
+# Incremental heavy-hitter frontier extension (apps/hh_state.py)
+#
+# The GGM control-bit invariant makes a descent round a ONE-level PRG step
+# instead of a from-root walk: for the client's LAST level key (point = the
+# full value), the two aggregators' states at any tree node are equal off
+# the value's path and differ exactly on it, so the control bit T at a
+# depth-d node is an XOR share of "the value's d-bit prefix is this node".
+# The frontier cache carries (S, T) at the surviving prefixes across rounds;
+# each round gathers the publicly surviving parent columns and expands both
+# children in one fused_levels launch.  Past the tree (depth > nu), leaves
+# convert ONCE (an expand_tail launch of 0 levels) and deeper prefixes are
+# XOR folds over intra-leaf bit ranges: after XOR reconstruction at most one
+# leaf bit is set, so the range-OR the descent needs IS the XOR fold.
+# ---------------------------------------------------------------------------
+
+
+def hh_leaf_fold_cc(P: torch.Tensor, m: int, ibits: int) -> torch.Tensor:
+    """Fold converted leaf words to depth-``m`` intra-leaf predicate bits.
+
+    P int32[K, A, 16] leaf output words (value bit x at word x // 32, bit
+    x % 32, LSB-first); only the low ``2**ibits`` bits are populated (ibits
+    = log_n - nu <= 9).  Returns int32[K, A, 2**m] 0/1 share bits: entry v
+    is the XOR of the leaf bits in value range [v * s, (v + 1) * s), s =
+    2**(ibits - m)."""
+    K, A = P.shape[0], P.shape[1]
+    n_bits = 1 << ibits
+    s = n_bits >> m
+    if s >= 32:
+        w = P[:, :, : n_bits // 32].reshape(K, A, 1 << m, s // 32)
+        w = _fold(w.movedim(3, 0), torch.bitwise_xor)
+        for sh in (16, 8, 4, 2, 1):
+            w = w ^ lshr(w, sh)
+        return w & 1
+    # Sub-word ranges: in-word parity fold (shifts < s never cross a range),
+    # then each range's LSB at bit c * s.
+    p = P[:, :, : max(n_bits // 32, 1)]
+    sh = s >> 1
+    while sh:
+        p = p ^ lshr(p, sh)
+        sh >>= 1
+    idx = torch.arange(min(32, n_bits) // s, dtype=torch.int32, device=P.device) * s
+    return ((p[:, :, :, None] >> idx) & 1).reshape(K, A, -1)
+
+
+def _hh_extend_cc_body(state, sel, scw, tcw):
+    """One incremental frontier level: gather the surviving parent columns
+    (public ``sel`` int64[F]) out of the carried int32[5, K, .] state and
+    expand each one level in one ``fused_levels`` launch (the level's CWs
+    ``scw`` int32[K, 1, 4], ``tcw`` int32[K, 1, 2]) -> the new [5, K, 2F]
+    state (children L,R per parent, ascending) + the children's control-bit
+    share rows packed client-major int32[K, 2F / 32]."""
+    new = cp.fused_levels(state.index_select(2, sel), scw, tcw)
+    return new, bitpack.pack_bits_torch(new[4])
+
+
+def _hh_leaf_first_cc_body(ibits, state, sel, scw0, tcw0, fcw):
+    """Frontier crossing into the leaf: gather the surviving depth-nu
+    columns and convert their leaves ONCE in one ``expand_tail`` launch of
+    0 levels (``scw0`` int32[K, 0, 4], ``tcw0`` int32[K, 0, 2], ``fcw``
+    int32[K, 16]) -> the resident int32[K, F, 16] leaf state + the first
+    intra-leaf split (m=1) as packed rows int32[K, 2F / 32]."""
+    P = cp.expand_tail(state.index_select(2, sel), scw0, tcw0, fcw)
+    B = hh_leaf_fold_cc(P, 1, ibits)  # [K, F, 2], (parent, bit) order
+    return P, bitpack.pack_bits_torch(B.reshape(B.shape[0], -1))
+
+
+def _hh_leaf_fold_cc_body(m, ibits, P, idx):
+    """Intra-leaf frontier level m >= 2: fold the resident leaf state
+    (reused by every deeper round) and gather the requested children
+    (public ``idx`` int64[Q] = anc * 2**m + v) -> packed rows
+    int32[K, Q / 32]."""
+    B = hh_leaf_fold_cc(P, m, ibits)
+    return bitpack.pack_bits_torch(B.reshape(B.shape[0], -1).index_select(1, idx))

@@ -135,12 +135,15 @@ def gen_lt_batch(
     log_n: int,
     rng: np.random.Generator | None = None,
     profile: str = "compat",
+    *,
+    device=None,
 ) -> tuple[CmpKeyBatch, CmpKeyBatch]:
-    """Generate G comparison gate pairs for ``1{x < alpha}`` on the host:
-    the inactive levels' random points are drawn first, then one
-    ``gen_batch`` over all ``log_n * G`` level DPFs draws its roots from the
-    same ``rng`` (the JAX package's order).  ``profile="fast"`` builds the
-    gates from ChaCha-profile DPFs."""
+    """Generate G comparison gate pairs for ``1{x < alpha}``: the inactive
+    levels' random points are drawn first, then one ``gen_batch`` over all
+    ``log_n * G`` level DPFs draws its roots from the same ``rng`` (the JAX
+    package's order) and runs its tower on ``device`` (None: the card;
+    ``"cpu"``: the host tower).  ``profile="fast"`` builds the gates from
+    ChaCha-profile DPFs."""
     gen, _, _, _ = _profile_funcs(profile)
     alphas = np.asarray(alphas, dtype=np.uint64)
     if log_n < 1 or log_n > 63:
@@ -157,7 +160,7 @@ def gen_lt_batch(
     points = (pref & ~np.uint64(1)) << shifts  # (top-i bits || 0) << shift
     points = np.where(active, points, _rand_points(point_rng, (n, G), n))
 
-    ka, kb = gen(points.reshape(n * G), n, rng=rng)
+    ka, kb = gen(points.reshape(n * G), n, rng=rng, device=device)
     # Zero-share inactive levels: party B gets party A's key verbatim.
     idx = np.flatnonzero(~active.reshape(n * G))
     for f in ("seeds", "ts", "scw", "tcw", "fcw"):
@@ -195,15 +198,18 @@ def gen_interval_batch(
     log_n: int,
     rng: np.random.Generator | None = None,
     profile: str = "compat",
+    *,
+    device=None,
 ) -> tuple[IntervalKeyBatch, IntervalKeyBatch]:
     """Generate G interval gate pairs for ``1{lo <= x <= hi}`` (inclusive):
     ``1{x < hi+1} ^ 1{x < lo}``, the upper gates drawn first; the
     ``hi = 2^n - 1`` edge (hi+1 leaves the domain) becomes an always-0 gate
-    plus a public constant 1 on party A."""
+    plus a public constant 1 on party A.  ``device`` as in
+    :func:`gen_lt_batch`."""
     # alpha = 0 has no set bits -> every level inactive -> lt_0 == 0 shares.
     upper_alpha, lo, const_a, const_b = _interval_alphas(lo, hi, log_n, "fss")
-    ua, ub = gen_lt_batch(upper_alpha, log_n, rng=rng, profile=profile)
-    la, lb = gen_lt_batch(lo, log_n, rng=rng, profile=profile)
+    ua, ub = gen_lt_batch(upper_alpha, log_n, rng=rng, profile=profile, device=device)
+    la, lb = gen_lt_batch(lo, log_n, rng=rng, profile=profile, device=device)
     return IntervalKeyBatch(ua, la, const_a), IntervalKeyBatch(ub, lb, const_b)
 
 

@@ -85,8 +85,11 @@ def pir_query(
     n_rows: int,
     rng: np.random.Generator | None = None,
     profile: str = "compat",
+    *,
+    device=None,
 ):
-    """Build the two servers' query key batches for a batch of row indices.
+    """Build the two servers' query key batches for a batch of row indices,
+    the Gen tower on ``device`` (None: the card; ``"cpu"``: the host tower).
 
     ``profile="fast"`` uses the ChaCha profile (``core/keys_chacha``):
     server and client must agree on the profile."""
@@ -95,8 +98,8 @@ def pir_query(
     if (indices >= n_rows).any():
         raise ValueError("pir: row index out of range")
     if profile == "fast":
-        return gen_batch_fast(indices, log_n, rng=rng)
-    return gen_batch(indices, log_n, rng=rng)
+        return gen_batch_fast(indices, log_n, rng=rng, device=device)
+    return gen_batch(indices, log_n, rng=rng, device=device)
 
 
 def pir_reconstruct(ans_a: np.ndarray, ans_b: np.ndarray) -> np.ndarray:

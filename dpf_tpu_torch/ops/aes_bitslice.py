@@ -206,3 +206,17 @@ def unpack_planes(planes: torch.Tensor) -> torch.Tensor:
     p = planes.reshape(4, 32, N, Kp).movedim(0, -1)  # [i, n, kp, q]
     t = transpose32(p)  # [j, n, kp, q]: bit i of t[j] = plane 32q+i of key j
     return t.permute(2, 0, 1, 3).reshape(Kp * 32, N, 4)
+
+
+def pack_blocks_np(blocks: np.ndarray) -> np.ndarray:
+    """Host pack: uint8[N, 16] blocks -> planes uint32[128, ceil(N/32)]
+    packed over the block axis (plane p bit j of word w = domain-bit p of
+    block 32w+j); the compat dealer's root seeds go in this way."""
+    blocks = np.asarray(blocks, dtype=np.uint8)
+    n = blocks.shape[0]
+    pad = (-n) % 32
+    if pad:
+        blocks = np.concatenate([blocks, np.zeros((pad, 16), np.uint8)])
+    bits = np.unpackbits(blocks, axis=1, bitorder="little")  # [N, 128]
+    lanes = np.packbits(bits.T, axis=1, bitorder="little")  # [128, N / 8]
+    return np.ascontiguousarray(lanes).view("<u4").astype(np.uint32)

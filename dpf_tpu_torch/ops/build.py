@@ -2,11 +2,11 @@
 
 ``nvcc`` compiles each source of :data:`LIBRARIES` (``csrc/aes_mmo.cu``,
 ``csrc/aes_fused.cu``, ``csrc/aes_walk.cu``, ``csrc/chacha_expand.cu``,
-``csrc/chacha_walk.cu``; plain C interfaces, no PyTorch headers) into a
-shared library of its own under ``build/`` beside the package, named by a
-hash of its source, headers and flags, so an unchanged tree reuses its
-build.  :func:`build_all` runs the nvcc processes side by side.
-``-Xptxas -v`` output (registers, spills per kernel) is kept beside the
+``csrc/chacha_walk.cu``, ``csrc/chacha_gen.cu``; plain C interfaces, no
+PyTorch headers) into a shared library of its own under ``build/`` beside
+the package, named by a hash of its source, headers and flags, so an
+unchanged tree reuses its build.  :func:`build_all` runs the nvcc processes
+side by side.  ``-Xptxas -v`` output (registers, spills per kernel) is kept beside the
 library; :func:`ptxas_report` parses it, and :func:`sass_report` counts the
 built kernels' machine instructions.  Nothing is built at import.
 """
@@ -33,6 +33,7 @@ LIBRARIES = {
     "aes_walk": (CSRC / "aes_walk.cu", (CSRC / "aes_bm.cuh", CSRC / "sbox_bp113.cuh")),
     "chacha_expand": (CSRC / "chacha_expand.cu", (CSRC / "chacha12.cuh",)),
     "chacha_walk": (CSRC / "chacha_walk.cu", (CSRC / "chacha12.cuh",)),
+    "chacha_gen": (CSRC / "chacha_gen.cu", (CSRC / "chacha12.cuh",)),
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dpf_tpu_torch"
 NVCC_FLAGS = (
@@ -85,6 +86,11 @@ _SIGNATURES = {
         # stream
         "dpf_chacha_walk_dcf": ([_vp] * 9 + [_ll, _ll, _int, _int, _vp], _int),
         "dpf_chacha_walk_error_string": ([_int], ctypes.c_char_p),
+    },
+    "chacha_gen": {
+        # s0, s1, t0, t1, bits, scw, tl, tr, fcw, vcw, K, nu, dcf, stream
+        "dpf_chacha_gen": ([_vp] * 10 + [_ll, _int, _int, _vp], _int),
+        "dpf_chacha_gen_error_string": ([_int], ctypes.c_char_p),
     },
 }
 

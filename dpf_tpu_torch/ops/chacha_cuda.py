@@ -1,6 +1,6 @@
 """The fast profile's kernels for Hopper, and their routing plan.
 
-The port's counterpart of ``dpf_tpu/ops/chacha_pallas.py``.  Four
+The port's counterpart of ``dpf_tpu/ops/chacha_pallas.py``.  Five
 wrappers, each beside its plain PyTorch version:
 
 - :func:`expand_tail` (``csrc/chacha_expand.cu::expand_tail_kernel``,
@@ -16,7 +16,11 @@ wrappers, each beside its plain PyTorch version:
   and ``xs_lo[Q, K]`` in, ``[Q, K]`` bits out;
 - :func:`walk_dcf` (``walk_dcf_kernel``, replacing ``_walk_kernel`` with
   ``dcf=True``): the same walk with the DCF value accumulator, the
-  operands of :func:`dcf_walk_operands` in, ``[Q, K]`` share bits out.
+  operands of :func:`dcf_walk_operands` in, ``[Q, K]`` share bits out;
+- :func:`gen_tower` (``csrc/chacha_gen.cu::gen_tower_cc_kernel``, replacing
+  no Pallas kernel but the JAX package's XLA body ``models/keys_gen.py::
+  _gen_cc_body``): the fast or DCF dealer's whole correction-word tower,
+  one key a thread.
 
 State rows 0..3 are the four seed words, row 4 the control bit (0/1); the
 CWs are the compact per-key ``scw[K, L, 4]``, ``tcw[K, L, 2]`` and
@@ -551,3 +555,60 @@ def eval_points_walk_dcf(kb, xs: np.ndarray, packed: bool = False, device="cpu",
     if packed:
         return bitpack.mask_tail(from_carrier(bitpack.pack_bits_qmajor_torch(bits)), q)
     return bits.T.to(torch.uint8).contiguous().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The dealer's tower (models/keys_gen.py)
+# ---------------------------------------------------------------------------
+
+
+def gen_tower_plain(s0, s1, t0, t1, bits, dcf: bool) -> tuple:
+    """Plain version of :func:`gen_tower`: the ``_level_gen_cc`` loop of
+    ``models/keys_gen.py`` on whole ``[K]`` word tensors."""
+    from ..models import keys_gen
+
+    return keys_gen._gen_cc_body(bits.shape[0], dcf, s0, s1, t0, t1, bits)
+
+
+def gen_tower(s0: torch.Tensor, s1: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor,
+              bits: torch.Tensor, dcf: bool) -> tuple:
+    """The fast or DCF dealer's correction-word tower of K keys: root seeds
+    ``s0``, ``s1`` int32[K, 4] (bit 0 of word 0 cleared), root control bits
+    ``t0``, ``t1`` int32[K] and alpha's path bits ``bits`` int32[nu, K]
+    (0/1) -> (scw [nu, K, 4], tl [nu, K], tr [nu, K], fcw [K, 16]) and, with
+    ``dcf``, vcw [nu, K], all int32.  Contract of ``dpf_tpu.models.keys_gen.
+    _gen_cc_body`` (``fcw`` is the parties' leaf XOR, before alpha's bit)."""
+    if bits.device.type == "cpu":
+        return gen_tower_plain(s0, s1, t0, t1, bits, dcf)
+    if bits.device.type != "cuda":
+        raise ValueError(f"expected a CUDA or CPU tensor, got {bits.device}")
+    dev = bits.device
+    if bits.dim() != 2:
+        raise ValueError(f"bits: expected [nu, K], got {list(bits.shape)}")
+    nu, K = bits.shape
+    for name, x, shape in (("s0", s0, (K, 4)), ("s1", s1, (K, 4)), ("t0", t0, (K,)),
+                           ("t1", t1, (K,)), ("bits", bits, (nu, K))):
+        _check(name, x, shape, (), dev)
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+    outs = [torch.empty((nu, K, 4), dtype=torch.int32, device=dev)]
+    outs += [torch.empty((nu, K), dtype=torch.int32, device=dev) for _ in range(2)]
+    outs.append(torch.empty((K, 16), dtype=torch.int32, device=dev))
+    if dcf:
+        outs.append(torch.empty((nu, K), dtype=torch.int32, device=dev))
+    if K == 0:  # no keys: nothing to launch
+        return tuple(outs)
+    lib = build.load("chacha_gen")
+    vcw = outs[4].data_ptr() if dcf else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.dpf_chacha_gen(*(x.data_ptr() for x in (s0, s1, t0, t1, bits, *outs[:4])),
+                                vcw, K, nu, int(dcf), stream)
+    if rc:
+        msg = lib.dpf_chacha_gen_error_string(rc).decode()
+        raise RuntimeError(f"gen_tower_cc_kernel launch failed: CUDA error {rc} ({msg})")
+    gen_tower.launches += 1
+    return tuple(outs)
+
+
+gen_tower.launches = 0

@@ -422,3 +422,17 @@ def walk_dcf_ops(nu: int) -> Counter:
     for kind, n in chacha_core_ops(9).items():
         ops[kind] = nu * n
     return ops + chacha_core_ops(16)
+
+
+def gen_tower_ops(nu: int, dcf: bool) -> Counter:
+    """Instructions by kind of the dealer's ciphers for one key
+    (csrc/chacha_gen.cu::gen_tower_cc_kernel): both parties' expansion
+    blocks per level (8 output words; 9 with the DCF's value word) and both
+    leaf blocks (16).  Counted as :func:`walk_chacha_ops`: the CW selects
+    around the ciphers are not."""
+    ops = Counter()
+    for kind, n in chacha_core_ops(9 if dcf else 8).items():
+        ops[kind] = 2 * nu * n
+    for kind, n in chacha_core_ops(16).items():
+        ops[kind] += 2 * n
+    return ops

@@ -50,6 +50,9 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
         "import dpf_tpu_torch.core.chacha_np, dpf_tpu_torch.core.keys_chacha\n"
         "import dpf_tpu_torch.core.bitpack, dpf_tpu_torch.models.dcf, dpf_tpu_torch.models.fss\n"
         "import dpf_tpu_torch.core.stream, dpf_tpu_torch.models.pir\n"
+        "import dpf_tpu_torch.models.keys_gen, dpf_tpu_torch.models.hh_fold\n"
+        "import dpf_tpu_torch.apps, dpf_tpu_torch.apps.heavy_hitters\n"
+        "import dpf_tpu_torch.apps.hh_state, dpf_tpu_torch.apps.aggregation\n"
         "dpf_tpu_torch.fss\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
         "print(bad)\n"
@@ -75,7 +78,7 @@ def test_port_sources_import_no_jax_and_no_dpf_tpu(path):
 
 def test_eval_full_batch_without_cuda_raises_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0))
+    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0), device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         port.eval_full_batch(ka)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -120,7 +123,7 @@ def test_port_source_scan_covers_the_fast_profile():
 
 def test_fast_eval_full_batch_without_cuda_raises_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    ka, _ = fast.gen_batch([5, 9], 12, np.random.default_rng(0))
+    ka, _ = fast.gen_batch([5, 9], 12, np.random.default_rng(0), device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         fast.eval_full_batch(ka)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -227,7 +230,7 @@ def test_chacha_cw_work_count_matches_traced_run(kind):
 
 
 def test_eval_full_device_rejects_unknown_impl():
-    ka, _ = port.gen_batch([1], 8, np.random.default_rng(0))
+    ka, _ = port.gen_batch([1], 8, np.random.default_rng(0), device="cpu")
     with pytest.raises(ValueError):
         port_dpf.eval_full_device(port_dpf.DeviceKeys(ka, "cpu"), impl="triton")
 
@@ -364,8 +367,8 @@ def test_port_source_scan_covers_the_point_path():
 def test_eval_points_batch_without_cuda_raises_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     xs = np.array([[1, 5], [9, 200]], np.uint64)
-    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0))
-    fa, _ = fast.gen_batch([5, 9], 8, np.random.default_rng(0))
+    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0), device="cpu")
+    fa, _ = fast.gen_batch([5, 9], 8, np.random.default_rng(0), device="cpu")
     for fn, kb in ((port.eval_points_batch, ka), (fast.eval_points_batch, fa)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             fn(kb, xs)
@@ -385,8 +388,8 @@ def test_stream_and_pir_without_cuda_raise_unless_cpu(monkeypatch):
     from dpf_tpu_torch.models import pir
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0))
-    fa, _ = fast.gen_batch([5, 9], 12, np.random.default_rng(0))
+    ka, _ = port.gen_batch([5, 9], 8, np.random.default_rng(0), device="cpu")
+    fa, _ = fast.gen_batch([5, 9], 12, np.random.default_rng(0), device="cpu")
     db = np.zeros((300, 8), np.uint8)
     for profile in ("compat", "fast"):
         with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -454,3 +457,59 @@ def test_walk_counts_are_their_ciphers(nu):
     expand = op_count.chacha_ops("expand")
     assert expand["LOP3"] + expand["SHF"] - op_count.LEVEL_STEP_EXTRA["LOP3"] == 380
     assert ops["LOP3"] + ops["SHF"] == 380 * (nu + 1)
+
+
+def test_port_source_scan_covers_the_dealer_and_the_apps():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {
+        "dpf_tpu_torch/models/keys_gen.py",
+        "dpf_tpu_torch/models/hh_fold.py",
+        "dpf_tpu_torch/apps/__init__.py",
+        "dpf_tpu_torch/apps/heavy_hitters.py",
+        "dpf_tpu_torch/apps/hh_state.py",
+        "dpf_tpu_torch/apps/aggregation.py",
+    } <= names
+
+
+def _gen_entry_points():
+    from dpf_tpu_torch import fss
+    from dpf_tpu_torch.apps import heavy_hitters
+    from dpf_tpu_torch.models import pir
+
+    return {
+        "gen_batch": lambda **kw: port.gen_batch([5, 9], 8, np.random.default_rng(0), **kw),
+        "fast.gen_batch": lambda **kw: fast.gen_batch([5, 9], 12, np.random.default_rng(0),
+                                                      **kw),
+        "dcf_gen_lt_batch": lambda **kw: fast.dcf_gen_lt_batch(
+            [3, 5], 8, np.random.default_rng(0), **kw),
+        "dcf_gen_interval_batch": lambda **kw: fast.dcf_gen_interval_batch(
+            [1, 2], [3, 4], 8, np.random.default_rng(0), **kw),
+        "fss.gen_lt_batch": lambda **kw: fss.gen_lt_batch(
+            [3, 5], 8, np.random.default_rng(0), "fast", **kw),
+        "fss.gen_interval_batch": lambda **kw: fss.gen_interval_batch(
+            [1, 2], [3, 4], 8, np.random.default_rng(0), **kw),
+        "pir_query": lambda **kw: pir.pir_query([1, 7], 100, np.random.default_rng(0), **kw),
+        "gen_shares": lambda **kw: heavy_hitters.gen_shares(
+            [3, 5, 5], 8, "fast", np.random.default_rng(0), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_gen_entry_points()))
+def test_gen_without_cuda_raises_unless_cpu(monkeypatch, name):
+    # Gen runs on the card by default: with CUDA hidden, a call with no
+    # device raises; device="cpu" runs the host tower.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _gen_entry_points()[name]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    assert call(device="cpu") is not None
+
+
+def test_gen_tower_takes_only_cpu_or_cuda_tensors():
+    before = chacha_cuda.gen_tower.launches
+    shapes = [(3, 4), (3, 4), (3,), (3,), (2, 3)]
+    with pytest.raises(ValueError):
+        chacha_cuda.gen_tower(*(torch.empty(s, dtype=torch.int32, device="meta")
+                                for s in shapes), False)
+    chacha_cuda.gen_tower(*(torch.zeros(s, dtype=torch.int32) for s in shapes), True)
+    assert chacha_cuda.gen_tower.launches == before

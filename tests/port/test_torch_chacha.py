@@ -111,7 +111,7 @@ def test_gen_batch_bytes_match_reference(log_n):
     K = 5
     alphas = np.random.default_rng(log_n).integers(0, 1 << min(log_n, 62), size=K,
                                                    dtype=np.uint64)
-    ka, kb = kc.gen_batch(alphas, log_n, np.random.default_rng(K))
+    ka, kb = kc.gen_batch(alphas, log_n, np.random.default_rng(K), device="cpu")
     ra, rb = ref_kc.gen_batch(alphas, log_n, np.random.default_rng(K))
     assert ka.to_bytes() == ra.to_bytes()
     assert kb.to_bytes() == rb.to_bytes()

@@ -69,7 +69,7 @@ def jax_lt():
 def test_gen_lt_batch_key_bytes_match_reference(log_n):
     alphas, _ = _gates(log_n, K, 2, seed=log_n)
     want = ref_dcf.gen_lt_batch(alphas, log_n, rng=np.random.default_rng(log_n))
-    got = fast.dcf_gen_lt_batch(alphas, log_n, np.random.default_rng(log_n))
+    got = fast.dcf_gen_lt_batch(alphas, log_n, np.random.default_rng(log_n), device="cpu")
     for g, w in zip(got, want):
         assert g.to_bytes() == w.to_bytes()
         assert all(len(b) == fast.dcf_key_len(log_n) == ref_dcf.key_len(log_n)
@@ -89,7 +89,7 @@ def test_every_domain_width_matches_reference(log_n):
     # the index word boundary (32, 33) and the widest domain (63).
     alphas, xs = _gates(log_n, 3, 4, seed=log_n)
     want = ref_dcf.gen_lt_batch(alphas, log_n, rng=np.random.default_rng(log_n))
-    got = dcf.gen_lt_batch(alphas, log_n, np.random.default_rng(log_n))
+    got = dcf.gen_lt_batch(alphas, log_n, np.random.default_rng(log_n), device="cpu")
     assert [g.to_bytes() for g in got] == [w.to_bytes() for w in want]
     assert len(got[0].to_bytes()[0]) == dcf.key_len(log_n) == ref_dcf.key_len(log_n)
     bits = [dcf.eval_points_np(g, xs) for g in got]
@@ -197,7 +197,7 @@ def jax_interval():
 
 def test_gen_interval_batch_matches_reference(jax_interval):
     lo, hi, _, ia, ib, _ = jax_interval
-    got = fast.dcf_gen_interval_batch(lo, hi, IV_LOG_N, np.random.default_rng(8))
+    got = fast.dcf_gen_interval_batch(lo, hi, IV_LOG_N, np.random.default_rng(8), device="cpu")
     for g, w in zip(got, (ia, ib)):
         assert g[0].to_bytes() == w[0].to_bytes() and g[1].to_bytes() == w[1].to_bytes()
         np.testing.assert_array_equal(g[2], w[2])
@@ -266,7 +266,7 @@ FROZEN = [
 def test_frozen_vectors(log_n, seed, key_sha, out_sha):
     rng = np.random.default_rng(seed)
     alphas = rng.integers(0, 1 << log_n, size=3, dtype=np.uint64)
-    ka, _ = dcf.gen_lt_batch(alphas, log_n, rng=np.random.default_rng(seed + 100))
+    ka, _ = dcf.gen_lt_batch(alphas, log_n, rng=np.random.default_rng(seed + 100), device="cpu")
     assert hashlib.sha256(b"".join(ka.to_bytes())).hexdigest() == key_sha
     xs = rng.integers(0, 1 << log_n, size=(3, 8), dtype=np.uint64)
     bits = dcf.eval_points_np(ka, xs)
@@ -308,18 +308,18 @@ def test_from_bytes_rejects_what_the_reference_rejects(log_n):
 
 def test_rejects_bad_inputs():
     with pytest.raises(ValueError, match="invalid"):
-        dcf.gen_lt_batch([300], 8)
+        dcf.gen_lt_batch([300], 8, device="cpu")
     with pytest.raises(ValueError, match="invalid"):
-        dcf.gen_lt_batch([0], 64)
-    ka, _ = dcf.gen_lt_batch([3, 5], 8, np.random.default_rng(0))
+        dcf.gen_lt_batch([0], 64, device="cpu")
+    ka, _ = dcf.gen_lt_batch([3, 5], 8, np.random.default_rng(0), device="cpu")
     with pytest.raises(ValueError, match="out of domain"):
         dcf.eval_lt_points(ka, np.array([[1], [256]], np.uint64), device="cpu")
     with pytest.raises(ValueError, match=r"\[K, Q\]"):
         dcf.eval_lt_points(ka, np.zeros((3, 2), np.uint64), device="cpu")
     with pytest.raises(ValueError, match="lo > hi"):
-        dcf.gen_interval_batch([5], [4], 8)
+        dcf.gen_interval_batch([5], [4], 8, device="cpu")
     with pytest.raises(ValueError, match="hi out of domain"):
-        dcf.gen_interval_batch([5], [256], 8)
+        dcf.gen_interval_batch([5], [256], 8, device="cpu")
     with pytest.raises(ValueError, match="vcw"):
         from_jax_dcfkeybatch(8, ka.seeds, ka.ts, ka.scw, ka.tcw, ka.vcw[:, None], ka.fvcw)
 
@@ -328,7 +328,7 @@ def test_rejects_bad_inputs():
 @pytest.mark.parametrize("shape", [(2, 0), (0, 4)])
 def test_empty_batches(monkeypatch, shape, packed):
     ka, _ = dcf.gen_lt_batch(np.arange(shape[0], dtype=np.uint64), 8,
-                             np.random.default_rng(0))
+                             np.random.default_rng(0), device="cpu")
     monkeypatch.setattr(chacha_cuda, "dcf_walk_args", None)  # nothing is walked
     got = dcf.eval_lt_points(ka, np.zeros(shape, np.uint64), packed=packed, device="cpu")
     assert got.shape == ((shape[0], -(-shape[1] // 32)) if packed else shape)
@@ -337,8 +337,8 @@ def test_empty_batches(monkeypatch, shape, packed):
 
 def test_without_cuda_raises_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    ka, _ = fast.dcf_gen_lt_batch([3, 5], 8, np.random.default_rng(0))
-    ia, _ = fast.dcf_gen_interval_batch([1, 2], [3, 4], 8, np.random.default_rng(0))
+    ka, _ = fast.dcf_gen_lt_batch([3, 5], 8, np.random.default_rng(0), device="cpu")
+    ia, _ = fast.dcf_gen_interval_batch([1, 2], [3, 4], 8, np.random.default_rng(0), device="cpu")
     xs = np.array([[1, 5], [9, 200]], np.uint64)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         fast.dcf_eval_lt_points(ka, xs)

@@ -27,7 +27,7 @@ from test_golden_vectors import VECTORS  # noqa: E402
 def _batch(log_n, K, seed):
     rng = np.random.default_rng(seed)
     alphas = rng.integers(0, 1 << log_n, size=K, dtype=np.uint64)
-    return alphas, port.gen_batch(alphas, log_n, rng)
+    return alphas, port.gen_batch(alphas, log_n, rng, device="cpu")
 
 
 def _spec_rows(kb, log_n):
@@ -59,7 +59,7 @@ def test_golden_vectors(vec):
 @pytest.mark.parametrize("log_n,K", [(5, 3), (12, 40), (20, 33)])
 def test_gen_batch_matches_reference(log_n, K):
     alphas = np.random.default_rng(log_n).integers(0, 1 << log_n, size=K, dtype=np.uint64)
-    ka, kb = port.gen_batch(alphas, log_n, np.random.default_rng(K))
+    ka, kb = port.gen_batch(alphas, log_n, np.random.default_rng(K), device="cpu")
     ra, rb = dpf_tpu.gen_batch(alphas, log_n, np.random.default_rng(K))
     assert ka.to_bytes() == ra.to_bytes()
     assert kb.to_bytes() == rb.to_bytes()

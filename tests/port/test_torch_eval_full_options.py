@@ -210,7 +210,7 @@ def test_fused_kernel_cap_splits_groups():
 def batch15():
     rng = np.random.default_rng(15)
     alphas = rng.integers(0, 1 << 15, size=32, dtype=np.uint64)
-    ka, kb = port.gen_batch(alphas, 15, rng)
+    ka, kb = port.gen_batch(alphas, 15, rng, device="cpu")
     return alphas, ka, kb, md.eval_full(ka, device="cpu")
 
 
@@ -248,7 +248,7 @@ def test_fused_route_from_level_2(monkeypatch, log_n, fuse, backend):
     # (nu = log_n - 7).
     rng = np.random.default_rng(log_n + fuse)
     ka, _ = port.gen_batch(rng.integers(0, 1 << log_n, size=40, dtype=np.uint64),
-                           log_n, rng)
+                           log_n, rng, device="cpu")
     base = md.eval_full(ka, device="cpu")
     _floor2(monkeypatch)
     assert md._fuse_plan(ka.nu, backend, fuse)[0] == 2
@@ -328,7 +328,7 @@ def test_eval_points_level_grouped_backend_positional():
     rng = np.random.default_rng(4)
     G, log_n = 2, 6
     kg, _ = port.gen_batch(rng.integers(0, 1 << log_n, size=log_n * G, dtype=np.uint64),
-                           log_n, rng)
+                           log_n, rng, device="cpu")
     xs = rng.integers(0, 1 << log_n, size=(G, 5), dtype=np.uint64)
     got = md.eval_points_level_grouped(kg, xs, 1, False, "xla", device="cpu")
     np.testing.assert_array_equal(got, md.eval_points_level_grouped(kg, xs, 1,
@@ -339,7 +339,7 @@ def test_eval_points_level_grouped_backend_positional():
 @pytest.mark.parametrize("backend", [None, "xla", "pallas"])
 def test_fast_eval_full_takes_reference_arguments(backend):
     rng = np.random.default_rng(7)
-    kb, _ = fast.gen_batch(rng.integers(0, 1 << 12, size=3, dtype=np.uint64), 12, rng)
+    kb, _ = fast.gen_batch(rng.integers(0, 1 << 12, size=3, dtype=np.uint64), 12, rng, device="cpu")
     words = dpf_chacha.eval_full_device(kb, dpf_chacha.MAX_LEAF_NODES, backend, 2,
                                         device="cpu")
     assert words.shape == (3, 1 << kb.nu, 16)

@@ -25,7 +25,7 @@ REF_CASES = [(8, 3), (14, 5), (17, 3), (20, 8)]
 def _batch(log_n, K, seed):
     rng = np.random.default_rng(seed)
     alphas = rng.integers(0, 1 << log_n, size=K, dtype=np.uint64)
-    return alphas, fast.gen_batch(alphas, log_n, rng)
+    return alphas, fast.gen_batch(alphas, log_n, rng, device="cpu")
 
 
 def _spec_rows(kb):
@@ -159,7 +159,7 @@ def test_subtree_route_matches_reference():
     # The JAX package's XLA chunk route on the CPU (no Pallas kernel runs).
     from dpf_tpu.models import dpf_chacha as ref_dc
 
-    ka, _ = fast.gen_batch(np.array([3, 5, 700], np.uint64), 14, np.random.default_rng(0))
+    ka, _ = fast.gen_batch(np.array([3, 5, 700], np.uint64), 14, np.random.default_rng(0), device="cpu")
     want = ref_dc.eval_full(ref_fast.KeyBatchFast.from_bytes(ka.to_bytes(), 14), 16,
                             backend="xla")
     np.testing.assert_array_equal(fast.eval_full_batch(ka, device="cpu", max_leaf_nodes=16),

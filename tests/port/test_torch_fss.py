@@ -93,7 +93,7 @@ def jax_gates():
 def test_gen_lt_batch_blobs_match_reference(jax_gates, profile):
     c = jax_gates[profile]
     log_n = REF_LOG_N[profile]
-    got = fss.gen_lt_batch(c["alphas"], log_n, np.random.default_rng(log_n), profile)
+    got = fss.gen_lt_batch(c["alphas"], log_n, np.random.default_rng(log_n), profile, device="cpu")
     for g, w in zip(got, (c["ca"], c["cb"])):
         assert g.to_bytes() == w.to_bytes()
         assert g.g == w.g == 4 and g.profile == profile
@@ -107,7 +107,7 @@ def test_gen_interval_batch_blobs_match_reference(profile):
     lo, hi = _interval_bounds(log_n)
     want = ref_fss.gen_interval_batch(lo, hi, log_n, rng=np.random.default_rng(3),
                                       profile=profile)
-    got = fss.gen_interval_batch(lo, hi, log_n, np.random.default_rng(3), profile)
+    got = fss.gen_interval_batch(lo, hi, log_n, np.random.default_rng(3), profile, device="cpu")
     for g, w in zip(got, want):
         assert g.upper.to_bytes() == w.upper.to_bytes()
         assert g.lower.to_bytes() == w.lower.to_bytes()
@@ -165,7 +165,7 @@ def test_interval_reconstructs(profile, log_n, packed):
     rng = np.random.default_rng(log_n)
     xs = rng.integers(0, 1 << log_n, size=(4, 9), dtype=np.uint64)
     xs[:, 0], xs[:, 1], xs[:, 2] = lo, hi, np.maximum(lo, np.uint64(1)) - np.uint64(1)
-    ia, ib = fss.gen_interval_batch(lo, hi, log_n, rng, profile)
+    ia, ib = fss.gen_interval_batch(lo, hi, log_n, rng, profile, device="cpu")
     rec = (fss.eval_interval_points(ia, xs, packed=packed, device="cpu")
            ^ fss.eval_interval_points(ib, xs, packed=packed, device="cpu"))
     inside = (lo[:, None] <= xs) & (xs <= hi[:, None])
@@ -196,7 +196,7 @@ def _ge(table, log_n):
 def test_ge_full_from_dpf_fast_matches_reference():
     log_n = 12
     alphas = np.array([0, 1, 4095, 1234, 511, 512], np.uint64)
-    ka, kb = fast.gen_batch(alphas, log_n, np.random.default_rng(4))
+    ka, kb = fast.gen_batch(alphas, log_n, np.random.default_rng(4), device="cpu")
     from dpf_tpu.models.keys_chacha import KeyBatchFast as RefBatch
 
     ref_a = RefBatch.from_bytes(ka.to_bytes(), log_n)
@@ -210,7 +210,7 @@ def test_ge_full_from_dpf_fast_matches_reference():
 def test_ge_full_from_dpf_compat_matches_spec(log_n):
     # K = 3 pads to 32 keys inside the evaluator; the rows are sliced back.
     alphas = np.array([0, (1 << log_n) - 1, 37], np.uint64)
-    ka, kb = port.gen_batch(alphas, log_n, np.random.default_rng(log_n))
+    ka, kb = port.gen_batch(alphas, log_n, np.random.default_rng(log_n), device="cpu")
     got = fss.ge_full_from_dpf(ka, device="cpu")
     spec_rows = np.stack([np.frombuffer(ref_spec.eval_full(k, log_n), np.uint8)
                           for k in ka.to_bytes()])
@@ -255,13 +255,13 @@ def test_slice_end_to_end(gate):
     lo = np.minimum(alphas, xs[:, 5])
     hi = np.maximum(alphas, xs[:, 5])
     if gate == "dcf":
-        lt_a, lt_b = fast.dcf_gen_lt_batch(alphas, log_n, rng)
-        iv_a, iv_b = fast.dcf_gen_interval_batch(lo, hi, log_n, rng)
+        lt_a, lt_b = fast.dcf_gen_lt_batch(alphas, log_n, rng, device="cpu")
+        iv_a, iv_b = fast.dcf_gen_interval_batch(lo, hi, log_n, rng, device="cpu")
         lt_eval, iv_eval = fast.dcf_eval_lt_points, fast.dcf_eval_interval_points
     else:
         profile = gate.split("-")[1]
-        lt_a, lt_b = port.fss.gen_lt_batch(alphas, log_n, rng, profile)
-        iv_a, iv_b = port.fss.gen_interval_batch(lo, hi, log_n, rng, profile)
+        lt_a, lt_b = port.fss.gen_lt_batch(alphas, log_n, rng, profile, device="cpu")
+        iv_a, iv_b = port.fss.gen_interval_batch(lo, hi, log_n, rng, profile, device="cpu")
         lt_eval, iv_eval = port.fss.eval_lt_points, port.fss.eval_interval_points
     rec = lt_eval(lt_a, xs, device="cpu") ^ lt_eval(lt_b, xs, device="cpu")
     np.testing.assert_array_equal(rec, xs < alphas[:, None])
@@ -276,12 +276,12 @@ def test_slice_end_to_end(gate):
 
 def test_rejects_bad_inputs():
     with pytest.raises(ValueError, match="unknown profile"):
-        fss.gen_lt_batch([1], 8, profile="aes")
+        fss.gen_lt_batch([1], 8, profile="aes", device="cpu")
     with pytest.raises(ValueError, match="out of domain"):
-        fss.gen_lt_batch([256], 8)
+        fss.gen_lt_batch([256], 8, device="cpu")
     with pytest.raises(ValueError, match="lo > hi"):
-        fss.gen_interval_batch([5], [4], 8)
-    ca, _ = fss.gen_lt_batch([3, 5], 8, np.random.default_rng(0), "fast")
+        fss.gen_interval_batch([5], [4], 8, device="cpu")
+    ca, _ = fss.gen_lt_batch([3, 5], 8, np.random.default_rng(0), "fast", device="cpu")
     with pytest.raises(ValueError, match=r"\[G, Q\]"):
         fss.eval_lt_points(ca, np.zeros((3, 2), np.uint64), device="cpu")
     with pytest.raises(ValueError, match="blob length"):
@@ -292,8 +292,8 @@ def test_without_cuda_raises_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     xs = np.array([[1, 5], [9, 200]], np.uint64)
     for profile in ("compat", "fast"):
-        ca, _ = fss.gen_lt_batch([3, 5], 8, np.random.default_rng(0), profile)
-        ia, _ = fss.gen_interval_batch([1, 2], [3, 4], 8, np.random.default_rng(0), profile)
+        ca, _ = fss.gen_lt_batch([3, 5], 8, np.random.default_rng(0), profile, device="cpu")
+        ia, _ = fss.gen_interval_batch([1, 2], [3, 4], 8, np.random.default_rng(0), profile, device="cpu")
         with pytest.raises(RuntimeError, match='device="cpu"'):
             fss.eval_lt_points(ca, xs)
         with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -30,7 +30,10 @@ kernel's barrier order, every lane of a ChaCha walk in turn, held against
 orders, the 64-bit index split, the level-grouping masks); the DCF lane of
 ``csrc/chacha_walk.cu`` against ``walk_dcf_plain`` on random words and against
 the numpy oracle ``models.dcf.eval_points_np`` on real keys (the value word's
-index, the parent's t).  It runs without a GPU.
+index, the parent's t).  The dealer's tower (``csrc/chacha_gen.cu``) builds
+into the ChaCha library too: every key of a launch in turn, held against
+``gen_tower_plain`` for the fast and the DCF tower at nu 0, 1 and 23.  It
+runs without a GPU.
 """
 
 import ctypes
@@ -218,6 +221,19 @@ extern "C" void host_fused(const uint32_t* S, const uint32_t* T, const uint32_t*
 CHACHA_HOST_ENTRY = """\
 #include "chacha_expand.cu"
 #include "chacha_walk.cu"
+#include "chacha_gen.cu"
+
+// Every key of one dealer launch, in turn.
+extern "C" void host_chacha_gen(const uint32_t* s0, const uint32_t* s1,
+                                const uint32_t* t0, const uint32_t* t1,
+                                const uint32_t* bits, uint32_t* scw, uint32_t* tl,
+                                uint32_t* tr, uint32_t* fcw, uint32_t* vcw, long long K,
+                                int nu, int dcf) {
+  const ChachaGenArgs a{s0, s1, t0, t1, bits, scw, tl, tr, fcw, vcw, K, nu};
+  for (long long k = 0; k < K; ++k) {
+    if (dcf) gen_lane<true>(a, k); else gen_lane<false>(a, k);
+  }
+}
 
 // Every lane (query i / K, key i % K) of one walk launch, in turn.
 extern "C" void host_chacha_walk(const uint32_t* meta, const uint32_t* seeds,
@@ -514,6 +530,8 @@ def chacha_lib(tmp_path_factory):
     lib.host_chacha_walk.restype = None
     lib.host_chacha_walk_dcf.argtypes = [vp] * 9 + [ll, ll, ctypes.c_int, ctypes.c_int]
     lib.host_chacha_walk_dcf.restype = None
+    lib.host_chacha_gen.argtypes = [vp] * 10 + [ll, ctypes.c_int, ctypes.c_int]
+    lib.host_chacha_gen.restype = None
     return lib
 
 
@@ -747,7 +765,7 @@ def test_chacha_walk_dcf_lane_matches_dcf_oracle(chacha_lib, log_n):
     xs[:, 0] = alphas
     xs[:, 1] = np.maximum(alphas, np.uint64(1)) - np.uint64(1)
     shares = []
-    for kb in dcf.gen_lt_batch(alphas, log_n, rng):
+    for kb in dcf.gen_lt_batch(alphas, log_n, rng, device="cpu"):
         *ops, xs_hi, log_n_, nu = chacha_cuda.dcf_walk_args(kb, xs)
         ops = [from_carrier(a) for a in ops + [ops[-1] if xs_hi is None else xs_hi]]
         out = np.zeros((Q, K), np.uint32)
@@ -755,3 +773,30 @@ def test_chacha_walk_dcf_lane_matches_dcf_oracle(chacha_lib, log_n):
         np.testing.assert_array_equal(out.T, dcf.eval_points_np(kb, xs))
         shares.append(out.T)
     np.testing.assert_array_equal(shares[0] ^ shares[1], xs < alphas[:, None])
+
+
+@pytest.mark.parametrize("dcf_tower", [False, True], ids=["fast", "dcf"])
+@pytest.mark.parametrize("nu", [0, 1, 23])
+def test_chacha_gen_tower_matches_plain(chacha_lib, dcf_tower, nu):
+    # Every key of one gen_tower_cc_kernel launch against gen_tower_plain on
+    # random roots and path bits (K = 5: the bounds check is the launch's).
+    rng = np.random.default_rng(40 + nu + 100 * dcf_tower)
+    K = 5
+    s0 = rng.integers(0, 1 << 32, size=(K, 4), dtype=np.uint32)
+    s1 = rng.integers(0, 1 << 32, size=(K, 4), dtype=np.uint32)
+    s0[:, 0] &= ~np.uint32(1)
+    s1[:, 0] &= ~np.uint32(1)
+    t0 = rng.integers(0, 2, size=K, dtype=np.uint32)
+    t1 = t0 ^ np.uint32(1)
+    bits = rng.integers(0, 2, size=(nu, K), dtype=np.uint32)
+    outs = [np.zeros((nu, K, 4), np.uint32), np.zeros((nu, K), np.uint32),
+            np.zeros((nu, K), np.uint32), np.zeros((K, 16), np.uint32)]
+    vcw = np.zeros((nu, K), np.uint32)
+    chacha_lib.host_chacha_gen(*(_p(a) for a in (s0, s1, t0, t1, bits, *outs)),
+                               _p(vcw) if dcf_tower else None, K, nu, int(dcf_tower))
+    want = chacha_cuda.gen_tower_plain(*(to_carrier(a) for a in (s0, s1, t0, t1, bits)),
+                                       dcf_tower)
+    got = outs + ([vcw] if dcf_tower else [])
+    assert len(want) == len(got)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, from_carrier(w))

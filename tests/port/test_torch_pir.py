@@ -75,7 +75,7 @@ def test_answer_matches_reference(reference, profile, chunk_bytes):
 @pytest.mark.parametrize("profile", ["compat", "fast"])
 def test_pir_query_matches_reference(reference, profile):
     (qa, qb), _ = reference[profile]
-    pa, pb = pir.pir_query(INDICES, N_ROWS, rng=np.random.default_rng(7), profile=profile)
+    pa, pb = pir.pir_query(INDICES, N_ROWS, rng=np.random.default_rng(7), profile=profile, device="cpu")
     assert pa.to_bytes() == qa.to_bytes() and pb.to_bytes() == qb.to_bytes()
 
 
@@ -92,7 +92,7 @@ def test_answer_matches_spec_across_shapes(profile, n_rows, row_bytes, chunk_byt
     # bit is set, the two answers reconstruct the rows.
     db = _db(n_rows, n_rows, row_bytes)
     idx = [0, n_rows // 3, n_rows - 1]
-    qa, qb = pir.pir_query(idx, n_rows, rng=np.random.default_rng(n_rows), profile=profile)
+    qa, qb = pir.pir_query(idx, n_rows, rng=np.random.default_rng(n_rows), profile=profile, device="cpu")
     server = pir.PirServer(db, chunk_rows, profile, chunk_bytes, device="cpu")
     np.testing.assert_array_equal(
         pir.pir_reconstruct(server.answer(qa), server.answer(qb)), db[idx])
@@ -155,7 +155,7 @@ def test_errors_match_reference(reference):
                          lambda: ref_pir.PirServer(db[:, :6]))
     _raises_as_reference(lambda: pir.PirServer(db[0], device="cpu"),
                          lambda: ref_pir.PirServer(db[0]))
-    _raises_as_reference(lambda: pir.pir_query([N_ROWS], N_ROWS),
+    _raises_as_reference(lambda: pir.pir_query([N_ROWS], N_ROWS, device="cpu"),
                          lambda: ref_pir.pir_query([N_ROWS], N_ROWS))
     for profile, ref_keys, other_keys in (("compat", qa, fa), ("fast", fa, qa)):
         server = pir.PirServer(db, profile=profile, device="cpu")
@@ -172,13 +172,15 @@ def test_errors_match_reference(reference):
 
 
 def test_signatures_extend_reference():
-    # The reference's parameters and defaults, in order; the server leaves
-    # out the reference's mesh (the sharded routes are not ported) and
-    # takes device after them.
+    # The reference's parameters and defaults, in order; pir_query takes
+    # the Gen tower's device after them; the server leaves out the
+    # reference's mesh (the sharded routes are not ported) and takes device
+    # after them.
     def params(fn):
         return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
 
-    for name in ("row_domain", "pir_query", "pir_reconstruct"):
+    for name in ("row_domain", "pir_reconstruct"):
         assert params(getattr(pir, name)) == params(getattr(ref_pir, name))
+    assert params(pir.pir_query) == params(ref_pir.pir_query) + [("device", None)]
     want = [p for p in params(ref_pir.PirServer.__init__) if p[0] != "mesh"]
     assert params(pir.PirServer.__init__) == want + [("device", None)]

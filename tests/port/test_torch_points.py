@@ -63,7 +63,7 @@ def _spec_case(log_n, K, Q):
     positions, party 0's spec bits there)."""
     rng = np.random.default_rng(1000 * log_n + 10 * K + Q)
     alphas = rng.integers(0, 1 << log_n, size=K, dtype=np.uint64)
-    ka, kb = port.gen_batch(alphas, log_n, rng)
+    ka, kb = port.gen_batch(alphas, log_n, rng, device="cpu")
     xs = rng.integers(0, 1 << log_n, size=(K, Q), dtype=np.uint64)
     xs[:, 0] = alphas
     cols = [np.unique(np.r_[0, rng.integers(0, Q, size=3)]) for _ in range(K)]
@@ -245,7 +245,7 @@ def test_level_grouped_matches_spec(log_n, G, Q, groups, levels):
     rng = np.random.default_rng(log_n + G)
     n_lv = log_n if levels is None else len(levels)
     K = groups * n_lv * G
-    kb, _ = port.gen_batch(rng.integers(0, 1 << log_n, size=K, dtype=np.uint64), log_n, rng)
+    kb, _ = port.gen_batch(rng.integers(0, 1 << log_n, size=K, dtype=np.uint64), log_n, rng, device="cpu")
     xs = rng.integers(0, 1 << log_n, size=(G, Q), dtype=np.uint64)
     want = _grouped_spec(kb, xs, groups, levels)
     full = md.eval_points_level_grouped(kb, xs, groups, levels=levels, device="cpu")
@@ -257,7 +257,7 @@ def test_level_grouped_matches_spec(log_n, G, Q, groups, levels):
 
 
 def test_eval_points_rejects_bad_queries():
-    kb, _ = port.gen_batch([3, 5], 8, np.random.default_rng(0))
+    kb, _ = port.gen_batch([3, 5], 8, np.random.default_rng(0), device="cpu")
     with pytest.raises(ValueError, match="out of domain"):
         port.eval_points_batch(kb, np.array([[1], [256]], np.uint64), device="cpu")
     with pytest.raises(ValueError, match="match key batch"):
@@ -309,11 +309,11 @@ def _empty_call(pkg, case, packed):
     kw = {} if ref else {"device": "cpu"}
     if case in ("Q0", "K0"):
         alphas = [3, 5] if case == "Q0" else np.zeros(0, np.uint64)
-        kb, _ = pkg.gen_batch(alphas, EMPTY_LOG_N, np.random.default_rng(0))
+        kb, _ = pkg.gen_batch(alphas, EMPTY_LOG_N, np.random.default_rng(0), **kw)
         xs = np.zeros((2, 0) if case == "Q0" else (0, 4), np.uint64)
         return pkg.eval_points_batch(kb, xs, packed=packed, **kw)
     kb, _ = pkg.gen_batch(np.arange(12, dtype=np.uint64), EMPTY_LOG_N,
-                          np.random.default_rng(0))
+                          np.random.default_rng(0), **kw)
     levels = tuple(range(EMPTY_LOG_N)) if case.startswith("levels") else None
     return model.eval_points_level_grouped(kb, np.zeros((2, 0), np.uint64), 1,
                                            reduce=case.endswith("reduced"),
@@ -341,7 +341,7 @@ def test_empty_batches_match_reference(monkeypatch, case, packed):
 def test_grouped_batch_of_no_gates_is_empty(packed):
     # The reference's packed form raises here (a reshape of no gates); the
     # port returns the empty rows.
-    kb, _ = port.gen_batch(np.zeros(0, np.uint64), EMPTY_LOG_N, np.random.default_rng(0))
+    kb, _ = port.gen_batch(np.zeros(0, np.uint64), EMPTY_LOG_N, np.random.default_rng(0), device="cpu")
     got = md.eval_points_level_grouped(kb, np.zeros((0, 5), np.uint64), 1, reduce=True,
                                        packed=packed, device="cpu")
     assert got.shape == ((0, 1) if packed else (0, 5))

@@ -109,7 +109,7 @@ def test_eval_points_batch_matches_spec(log_n, K, Q):
     # nu = 0 (log_n <= 9), the first level, and the high index word.
     rng = np.random.default_rng(100 + log_n)
     alphas = rng.integers(0, 1 << log_n, size=K, dtype=np.uint64)
-    ka, kb = fast.gen_batch(alphas, log_n, rng)
+    ka, kb = fast.gen_batch(alphas, log_n, rng, device="cpu")
     xs = rng.integers(0, 1 << log_n, size=(K, Q), dtype=np.uint64)
     xs[:, 0] = alphas
     got = fast.eval_points_batch(ka, xs, device="cpu")
@@ -174,7 +174,7 @@ def _grouped_case(log_n, G, Q, groups, levels):
     """(keys, raw gate queries, spec bits at the masked queries)."""
     rng = np.random.default_rng(log_n + G)
     K = groups * (log_n if levels is None else len(levels)) * G
-    kb, _ = fast.gen_batch(rng.integers(0, 1 << log_n, size=K, dtype=np.uint64), log_n, rng)
+    kb, _ = fast.gen_batch(rng.integers(0, 1 << log_n, size=K, dtype=np.uint64), log_n, rng, device="cpu")
     xs = rng.integers(0, 1 << log_n, size=(G, Q), dtype=np.uint64)
     return kb, xs, _grouped_spec(kb, xs, groups, levels)
 
@@ -195,7 +195,7 @@ def test_level_grouped_matches_spec(log_n, G, Q, groups, levels, packed):
 
 
 def test_fast_eval_points_rejects_bad_queries():
-    kb, _ = fast.gen_batch([3, 5], 12, np.random.default_rng(0))
+    kb, _ = fast.gen_batch([3, 5], 12, np.random.default_rng(0), device="cpu")
     with pytest.raises(ValueError, match="out of domain"):
         fast.eval_points_batch(kb, np.array([[1], [4096]], np.uint64), device="cpu")
     with pytest.raises(ValueError, match=r"\[K, Q\]"):
@@ -217,12 +217,12 @@ def _empty_call(ref, case, packed):
     kw = {} if ref else {"device": "cpu"}
     if case in ("Q0", "K0"):
         alphas = np.array([3, 5] if case == "Q0" else [], np.uint64)
-        kb, _ = gen(alphas, 8, rng=np.random.default_rng(0))
+        kb, _ = gen(alphas, 8, rng=np.random.default_rng(0), **kw)
         xs = np.zeros((2, 0) if case == "Q0" else (0, 4), np.uint64)
         return (ref_fast if ref else fast).eval_points_batch(kb, xs, packed=packed, **kw)
     from dpf_tpu.models import dpf_chacha as ref_mdc
 
-    kb, _ = gen(np.arange(16, dtype=np.uint64), 8, rng=np.random.default_rng(0))
+    kb, _ = gen(np.arange(16, dtype=np.uint64), 8, rng=np.random.default_rng(0), **kw)
     return (ref_mdc if ref else mdc).eval_points_level_grouped(
         kb, np.zeros((2, 0), np.uint64), 1, reduce=case == "grouped_reduced",
         packed=packed, **kw)
@@ -248,7 +248,7 @@ def test_eval_points_batch_takes_backend_third():
     # eval_points_batch(kb, xs, "cpu") is the host route, as in the reference;
     # "cpu" is not read as ``packed``.
     xs = np.array([[3, 4, 5], [5, 6, 7]], np.uint64)
-    ka, _ = fast.gen_batch([3, 5], 8, np.random.default_rng(0))
+    ka, _ = fast.gen_batch([3, 5], 8, np.random.default_rng(0), device="cpu")
     ra, _ = ref_gen_batch(np.array([3, 5], np.uint64), 8, rng=np.random.default_rng(0))
     got = fast.eval_points_batch(ka, xs, "cpu")
     want = ref_fast.eval_points_batch(ra, xs, "cpu")

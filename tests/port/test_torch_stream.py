@@ -111,7 +111,7 @@ def test_fast_stream_matches_reference(fast_reference, case):
     (3, 2, 1, 4, None, 0),
 ])
 def test_compat_stream_blocks_are_eval_full(log_n, K, mpw, mc, backend, c):
-    ka, _ = gen_batch(_alphas(log_n, K, log_n), log_n, np.random.default_rng(log_n))
+    ka, _ = gen_batch(_alphas(log_n, K, log_n), log_n, np.random.default_rng(log_n), device="cpu")
     ev = []
     blocks = list(md.eval_full_stream(ka, mpw, backend, mc, ev, device="cpu"))
     assert len(blocks) == 1 << c
@@ -127,7 +127,7 @@ def test_compat_stream_blocks_are_eval_full(log_n, K, mpw, mc, backend, c):
     (3, 2, 1, 8, 0),  # nu 0
 ])
 def test_fast_stream_blocks_are_eval_full(log_n, K, cap, mc, c):
-    ka, _ = gen_fast(_alphas(log_n, K, log_n), log_n, np.random.default_rng(log_n))
+    ka, _ = gen_fast(_alphas(log_n, K, log_n), log_n, np.random.default_rng(log_n), device="cpu")
     blocks = list(mdc.eval_full_stream(ka, cap, mc, device="cpu"))
     assert len(blocks) == 1 << c
     np.testing.assert_array_equal(np.concatenate(blocks, axis=1),
@@ -148,11 +148,11 @@ def test_blocks_stay_right_while_all_are_held(profile):
     # Each block owns its buffer: a later chunk never overwrites an earlier
     # block that the consumer still holds.
     if profile == "compat":
-        ka, _ = gen_batch(_alphas(11, 7, 3), 11, np.random.default_rng(3))
+        ka, _ = gen_batch(_alphas(11, 7, 3), 11, np.random.default_rng(3), device="cpu")
         full = md.eval_full(ka, device="cpu")
         gen = md.eval_full_stream(ka, 8, min_chunks=4, device="cpu")
     else:
-        ka, _ = gen_fast(_alphas(13, 7, 3), 13, np.random.default_rng(3))
+        ka, _ = gen_fast(_alphas(13, 7, 3), 13, np.random.default_rng(3), device="cpu")
         full = mdc.eval_full(ka, device="cpu")
         gen = mdc.eval_full_stream(ka, 64, min_chunks=4, device="cpu")
     held = list(gen)
@@ -238,7 +238,7 @@ def test_device_keys_are_built_once_per_batch_and_device(monkeypatch, profile):
 
     monkeypatch.setattr(mod, cls.__name__, Counting)
     log_n = 12
-    ka, kb = gen(_alphas(log_n, 9, 5), log_n, np.random.default_rng(5))
+    ka, kb = gen(_alphas(log_n, 9, 5), log_n, np.random.default_rng(5), device="cpu")
     first = mod.eval_full(ka, device="cpu")
     np.testing.assert_array_equal(mod.eval_full(ka, device=torch.device("cpu")), first)
     np.testing.assert_array_equal(
