@@ -45,8 +45,19 @@ party on the card, ``find_heavy_hitters`` incremental and stateless, each
 recovering the planted values with exact counts, and the on-card count
 fold against the host popcount; phase 39, ``aggregate_rows`` over 2^20 x
 64-word client rows and ``aggregate_eval_full`` of config 2's batch in
-both profiles against numpy and ``eval_full_batch``.  The kernels of
-those options (``prg_canon_kernel``, ``leaf_words_canon_kernel``,
+both profiles against numpy and ``eval_full_batch``.  Then phase 40, the
+dispatch plans on the card (``dpf_tpu_torch.core.plans``): ``warmup``
+captures one CUDA graph for each of compat and fast ``evalfull`` at config 2,
+compat and fast ``points`` at config 3 and ``dcf_points`` at config 5;
+requests inside and on those buckets are byte-identical to the direct eager
+model calls, reconstruct at alpha and capture nothing more; one replay of
+each graph is traced beside the eager body and shows the same kernels by
+name and count; each plan's host enqueue, device work, wall, idle share,
+pool bytes and capture seconds are printed beside the eager body's; and the
+eager routes (``gen`` of all three families, ``pir`` on a registered
+database, ``hh_level``, ``hh_extend``, ``hh_fold``, ``dcf_interval``,
+``agg_xor``, ``agg_add``) run once each against their direct model calls.
+The kernels of those options (``prg_canon_kernel``, ``leaf_words_canon_kernel``,
 ``prg_bm_il_kernel``, ``fused_levels_bm_kernel``) are held against their
 plain versions and timed last (phases 30-31).  The leaf kernels
 (``leaf_words_bm_kernel``, ``leaf_words_canon_kernel``: the leaf MMO, the
@@ -268,6 +279,31 @@ HH_KERNELS = {
 }
 # Phase 39, aggregation (bench_all.py:1491-1524): 2^20 client rows x 64 words.
 AGG_ROWS, AGG_WORDS = 1 << 20, 64
+# Phase 40, the plans on the card: the warmed graph plans (BASELINE configs 2,
+# 3 and 5), the requests sent inside and on their buckets (K, Q), and the
+# hand kernels each replay launches (the eager call's, by name and count).
+PLAN_WARM = (
+    {"route": "evalfull", "profile": "compat", "log_n": 20, "k": 1024},
+    {"route": "evalfull", "profile": "fast", "log_n": 20, "k": 1024},
+    {"route": "points", "profile": "compat", "log_n": 30, "k": 256, "q": 4096},
+    {"route": "points", "profile": "fast", "log_n": 30, "k": 256, "q": 4096},
+    {"route": "dcf_points", "profile": "fast", "log_n": 32, "k": 4096, "q": 1024},
+)
+PLAN_REQUESTS = {
+    ("evalfull", "compat"): ((1024, 0), (1000, 0), (513, 0)),
+    ("evalfull", "fast"): ((1024, 0), (1000, 0), (513, 0)),
+    ("points", "compat"): ((256, 4096), (200, 4000)),
+    ("points", "fast"): ((256, 4096), (200, 4000)),
+    ("dcf_points", "fast"): ((4096, 1024), (4000, 1000)),
+}
+PLAN_KERNELS = {
+    ("evalfull", "compat"): {"prg_bm_kernel": 13, "leaf_words_bm_kernel": 1},
+    ("evalfull", "fast"): {"fused_levels_kernel": 2, "expand_tail_kernel": 1},
+    ("points", "compat"): {"walk_bm_kernel": 1},
+    ("points", "fast"): {"walk_kernel": 1},
+    ("dcf_points", "fast"): {"walk_dcf_kernel": 1},
+}
+PLAN_SAMPLE = 64  # keys a request reconstructs at alpha
 PIR_LAUNCHES = {
     "compat": {"prg_bm_kernel": 17, "leaf_words_bm_kernel": 1},
     "fast": {"fused_levels_kernel": 2, "expand_tail_kernel": 1},
@@ -391,14 +427,18 @@ def device_breakdown(fn, expect: str, attempts: int = 3
 TRACE_PAUSE_S = 0.1
 
 
-def device_breakdowns(fns: list, expects: list[str], attempts: int = 3) -> list[tuple]:
+def device_breakdowns(fns: list, expects: list[str], attempts: int = 3,
+                      lead: int = 0) -> list[tuple]:
     """:func:`device_breakdown` of each of ``fns`` in ONE torch.profiler
     session: each runs once, synchronized and followed by a pause of
     ``TRACE_PAUSE_S``, and the device events split into one cluster per
     run at the gaps longer than half the pause.  Chip runs whose later
     traces followed many launches lost device events, so a phase that
-    traces many paths takes one session.  A trace whose clusters do not
-    hold each run's ``expects`` kernel is taken again."""
+    traces many paths takes one session.  The first ``lead`` runs are not
+    read (the clusters are matched to the runs from the last one back: late
+    traces lost events near a session's start), and only the others'
+    results return.  A trace whose clusters do not hold each read run's
+    ``expects`` kernel is taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, attempts + 1):
@@ -422,6 +462,8 @@ def device_breakdowns(fns: list, expects: list[str], attempts: int = 3) -> list[
                 end = e.time_range.end
             clusters[-1].append(e)
             end = max(end, e.time_range.end)
+        n_clusters, keep = len(clusters), len(fns) - lead
+        clusters, walls, want = clusters[max(n_clusters - keep, 0):], walls[lead:], expects[lead:]
         out = []
         for wall_ms, cluster in zip(walls, clusters):
             busy: dict[str, tuple[float, int]] = {}
@@ -431,11 +473,11 @@ def device_breakdowns(fns: list, expects: list[str], attempts: int = 3) -> list[
             span_ms = (max(e.time_range.end for e in cluster)
                        - cluster[0].time_range.start) / 1e3
             out.append((wall_ms, span_ms, busy))
-        found = [any(x in name for name in b) for x, (_, _, b) in zip(expects, out)]
-        if len(clusters) == len(fns) and all(found):
+        found = [any(x in name for name in b) for x, (_, _, b) in zip(want, out)]
+        if keep <= n_clusters <= len(fns) and all(found):
             return out
         log(f"[profile] trace attempt {attempt} of {attempts}: {len(evts)} device events in "
-            f"{len(clusters)} clusters for {len(fns)} runs, expected kernels {found}")
+            f"{n_clusters} clusters for {len(fns)} runs, expected kernels {found}")
     raise AssertionError(f"torch.profiler did not record {expects} in {attempts} traces")
 
 
@@ -2259,6 +2301,314 @@ def agg_phase(dev, card: str) -> None:
         del words
 
 
+# ---------------------------------------------------------------------------
+# The dispatch plans on the card (phase 40)
+# ---------------------------------------------------------------------------
+
+
+def _plan_request(route: str, profile: str, log_n: int, k: int, q: int, seed: int):
+    """Both parties' keys dealt on the card for ``k`` random alphas, the
+    queries uint64[k, q] (query 0 at alpha, query 1 beside it; None for
+    evalfull), and the direct eager model call -> (alphas, ka, kb, xs,
+    direct)."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+
+    rng = np.random.default_rng(seed)
+    alphas = rng.integers(1, 1 << log_n, size=k, dtype=np.uint64)
+    gen = {("evalfull", "compat"): P.gen_batch, ("evalfull", "fast"): fast.gen_batch,
+           ("points", "compat"): P.gen_batch, ("points", "fast"): fast.gen_batch,
+           ("dcf_points", "fast"): fast.dcf_gen_lt_batch}[(route, profile)]
+    ka, kb = gen(alphas, log_n, rng)
+    xs = None
+    if route != "evalfull":
+        xs = rng.integers(0, 1 << log_n, size=(k, q), dtype=np.uint64)
+        xs[:, 0], xs[:, 1] = alphas, alphas - np.uint64(1)
+    direct = {
+        ("evalfull", "compat"): P.eval_full_batch,
+        ("evalfull", "fast"): fast.eval_full_batch,
+        ("points", "compat"): lambda b: mdpf.eval_points(b, xs, packed=True),
+        ("points", "fast"): lambda b: mdc.eval_points(b, xs, packed=True),
+        ("dcf_points", "fast"): lambda b: fast.dcf_eval_lt_points(b, xs, packed=True),
+    }[(route, profile)]
+    return alphas, ka, kb, xs, direct
+
+
+def _plan_call(route: str, profile: str, kb, xs):
+    from dpf_tpu_torch.core import plans
+
+    if route == "evalfull":
+        return plans.run_evalfull(profile, kb)
+    return plans.run_points(route, profile, kb, xs)
+
+
+def _plan_body(route: str, profile: str, kb, xs, dev):
+    """The eager device body of a bucket-sized request and its operands on
+    the card: what the plan's graph captured."""
+    from dpf_tpu_torch.core import plans
+    from dpf_tpu_torch.models import dpf as mdpf
+
+    if route == "evalfull":
+        backend = mdpf._resolve_backend(None) if profile == "compat" else ""
+        body, ops = plans._evalfull_body(profile, kb, dev, backend)
+    else:
+        body, ops = plans._points_body(route, profile, kb, xs, dev)
+    return body, tuple(None if x is None else x.to(dev) for x in ops)
+
+
+def _is_copy(name: str) -> bool:
+    """A copy or memset event: the runtime's (``Memcpy DtoD ...``) or, in a
+    graph, its copy nodes run as kernels (``memcpy32_post``)."""
+    return name.lower().startswith(("memcpy", "memset"))
+
+
+def _sleep_lead() -> None:
+    """32 short sleep kernels: the lead of a traced session, whose first
+    few device events a late trace may lose."""
+    for _ in range(32):
+        torch.cuda._sleep(10_000)
+
+
+def _kernel_counts(busy: dict[str, tuple[float, int]]) -> Counter:
+    return Counter({name: n for name, (_, n) in busy.items() if not _is_copy(name)})
+
+
+def _copy_counts(busy: dict[str, tuple[float, int]]) -> int:
+    return sum(n for name, (_, n) in busy.items() if _is_copy(name))
+
+
+def _hand_kernels(counts: Counter, want: dict[str, int]) -> dict[str, int]:
+    """The counts of ``want``'s kernels in a trace's kernel counts (the
+    template kernels' names are mangled: matched by substring)."""
+    return {k: sum(n for name, n in counts.items() if k in name) for k in want}
+
+
+def plans_phase(dev, card: str) -> None:
+    """Phase 40: the dispatch plans on the card.  ``warmup`` captures one
+    CUDA graph a plan of ``PLAN_WARM``; every request of ``PLAN_REQUESTS``
+    (both parties) is byte-identical to the direct eager model call on the
+    same keys and reconstructs at alpha for ``PLAN_SAMPLE`` keys, and
+    ``capture_count()`` does not move across them; one replay of each graph
+    is traced beside its eager body in one session and shows the same
+    kernels by name and count (``PLAN_KERNELS`` among them); the eager body
+    and the replay are timed side by side; then the eager routes run once
+    each against their direct model calls."""
+    from dpf_tpu_torch.core import plans
+
+    plans.cache().clear()
+    t0 = time.perf_counter()
+    warmed = plans.warmup(list(PLAN_WARM))
+    warm_s = time.perf_counter() - t0
+    graphs = plans.capture_count()
+    if graphs != len(PLAN_WARM):
+        raise AssertionError(f"plans: warmup captured {graphs} graphs, not {len(PLAN_WARM)}")
+    by_route = {(p.key.route, p.key.profile): p for p in plans.cache()._plans.values()
+                if p.graph is not None}
+    for (route, profile), plan in sorted(by_route.items()):
+        log(f"[plans] {card}: {route} {profile} {plans._key_str(plan.key)}: graph captured "
+            f"in {plan.capture_s:.3f} s (first use {plan.compile_s:.3f} s), pool "
+            f"{plan.pool_bytes} B, output {plan.static_out.numel() * 4} B")
+    log(f"[plans] {card}: warmup of {len(warmed)} graph plans in {warm_s:.3f} s: "
+        f"{[w['seconds'] for w in warmed]}")
+
+    # Requests inside and on the buckets: byte-identical to the eager calls.
+    seed = 4000
+    bucket_reqs = {}
+    for (route, profile), reqs in PLAN_REQUESTS.items():
+        spec = next(s for s in PLAN_WARM if (s["route"], s["profile"]) == (route, profile))
+        for k, q in reqs:
+            seed += 1
+            alphas, ka, kb, xs, direct = _plan_request(route, profile, spec["log_n"], k, q,
+                                                       seed)
+            got = [_plan_call(route, profile, b, xs) for b in (ka, kb)]
+            for g, b in zip(got, (ka, kb)):
+                if not np.array_equal(g, direct(b)):
+                    raise AssertionError(f"plans: {route} {profile} K={k} Q={q} != eager")
+            s = PLAN_SAMPLE
+            if route == "evalfull":
+                assert_one_bit_at_alphas(got[0][:s] ^ got[1][:s], alphas[:s])
+            else:
+                bits = np.unpackbits((got[0][:s] ^ got[1][:s]).view(np.uint8), axis=1,
+                                     bitorder="little")[:, :q]
+                want = (xs[:s] < alphas[:s, None]) if route == "dcf_points" else (
+                    xs[:s] == alphas[:s, None])
+                if not np.array_equal(bits, want.astype(np.uint8)):
+                    raise AssertionError(f"plans: {route} {profile} K={k} Q={q}: shares "
+                                         "do not reconstruct")
+            log(f"[plans] {route} {profile} K={k} Q={q}: both parties == the eager call, "
+                f"{s} keys reconstruct at alpha")
+            if k == spec["k"]:
+                bucket_reqs[(route, profile)] = (ka, xs, direct)
+    if plans.capture_count() != graphs:
+        raise AssertionError(f"plans: capture_count moved {graphs} -> {plans.capture_count()}")
+    stats = plans.cache().stats()
+    log(f"[plans] capture_count() {graphs} after warmup and after every request; "
+        f"{stats['hits']} hits, {stats['misses']} misses, {stats['replays']} replays, "
+        f"pools {stats['pool_bytes']} B in all")
+
+    # One replay of each graph traced beside its eager body, in one session
+    # that first runs 32 short sleep kernels, not read: traces taken this
+    # late lost the first few device events of a session in chip runs
+    # (eager or replayed alike), and a kernel of its own keeps the lead's
+    # cluster from passing for a pair's.  A pair whose kernels differ is
+    # traced again, at most eight times.
+    order = sorted(by_route)
+    bodies = {rp: _plan_body(*rp, plans._pad_keys(bucket_reqs[rp][0], 0),
+                             bucket_reqs[rp][1], dev) for rp in order}
+    for rp in order:
+        body, ops = bodies[rp]
+        want = PLAN_KERNELS[rp]
+        expect = next(iter(want))
+        for attempt in range(1, 9):
+            try:
+                (e_wall, e_span, e_busy), (r_wall, r_span, r_busy) = device_breakdowns(
+                    [_sleep_lead, functools.partial(body, *ops),
+                     by_route[rp].graph.replay], ["sleep", expect, expect],
+                    attempts=1, lead=1)
+            except AssertionError as e:  # the session lost a run's kernels
+                log(f"[plans trace] attempt {attempt} of 8: {rp}: {e}")
+                continue
+            eager, replay = _kernel_counts(e_busy), _kernel_counts(r_busy)
+            hand = _hand_kernels(replay, want)
+            if hand == want == _hand_kernels(eager, want) and replay == eager:
+                break
+            log(f"[plans trace] attempt {attempt} of 8: {rp} replay kernels "
+                f"{sum(replay.values())} ({hand}) != eager {sum(eager.values())} "
+                f"({_hand_kernels(eager, want)})")
+        else:
+            raise AssertionError(f"plans: {rp}: no trace in 8 held the eager body's kernels "
+                                 f"and the replay's, equal, with {want}")
+        idle = []
+        for wall, busy in ((e_wall, e_busy), (r_wall, r_busy)):
+            idle.append(100 - 100 * sum(us for us, _ in busy.values()) / 1e3 / wall)
+        log(f"[plans trace] {card}: {rp[0]} {rp[1]}: the replay launches the eager body's "
+            f"{sum(replay.values())} kernels by name and count ({hand}); copies and "
+            f"memsets {_copy_counts(e_busy)} / {_copy_counts(r_busy)}; traced wall "
+            f"{e_wall:.3f} / {r_wall:.3f} ms, device span {e_span:.3f} / {r_span:.3f} ms, "
+            f"idle {idle[0]:.1f} / {idle[1]:.1f} % of the wall (eager / replay)")
+
+    # The eager body and the replay side by side.
+    for rp in order:
+        body, ops = bodies[rp]
+        plan = by_route[rp]
+        run_eager = functools.partial(body, *ops)
+
+        def synced(fn):
+            return lambda: (fn(), torch.cuda.synchronize())
+
+        enq = (enqueue_ms(run_eager), enqueue_ms(plan.graph.replay))
+        # One run queued behind a sleep kernel: the card never waits on the
+        # host's launches, so the events hold the device work alone.
+        work = (kernel_ms(run_eager, reps=1), kernel_ms(plan.graph.replay, reps=1))
+        wall = (host_ms(synced(run_eager)), host_ms(synced(plan.graph.replay)))
+        ka, xs, direct = bucket_reqs[rp]
+        e2e = (host_ms(lambda: direct(ka), warmup=1, reps=5),
+               host_ms(lambda: _plan_call(*rp, ka, xs), warmup=1, reps=5))
+        log(f"[plans time] {card}: {rp[0]} {rp[1]} (plan {plans._key_str(plan.key)}): "
+            f"eager body / replay: host enqueue {enq[0]:.4f} / {enq[1]:.4f} ms, device work "
+            f"{work[0]:.4f} / {work[1]:.4f} ms (CUDA events, queued behind a sleep), wall "
+            f"{wall[0]:.4f} / {wall[1]:.4f} ms (synchronized, median of 10), the card idle "
+            f"{100 - 100 * work[0] / wall[0]:.1f} / {100 - 100 * work[1] / wall[1]:.1f} % of "
+            f"the wall; pool {plan.pool_bytes} B, capture {plan.capture_s:.3f} s; end to end "
+            f"(direct call / run_*, median of 5) {e2e[0]:.3f} / {e2e[1]:.3f} ms")
+    del bodies, bucket_reqs
+    eager_routes_phase(dev, card)
+    plans.cache().clear()
+
+
+def eager_routes_phase(dev, card: str, k: int = 1000, pir_rows: int = 1 << 20) -> None:
+    """Phase 40's eager routes on the card, each once against its direct
+    model call: ``gen`` of the three families (n=20, ``k`` keys: 1000 is
+    padded to the 1024 bucket), ``pir`` on a registered database (both
+    profiles, ``pir_rows`` x 32 B, 100 queries), ``hh_level``, ``hh_extend``
+    (n=16, ``k`` clients), ``hh_fold``, ``dcf_interval`` (n=32, ``k``
+    gates) and ``agg_xor`` and ``agg_add`` (``k`` x 16 words)."""
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast
+    from dpf_tpu_torch.apps import aggregation as agg
+    from dpf_tpu_torch.apps import hh_state, pir_store
+    from dpf_tpu_torch.core import keys, keys_chacha, plans
+    from dpf_tpu_torch.models import dcf, hh_fold, keys_gen, pir
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+    from dpf_tpu_torch.ops.aes_bitslice import from_carrier, to_carrier
+
+    rng = np.random.default_rng(41)
+    alphas = rng.integers(0, 1 << 20, size=k, dtype=np.uint64)
+    for kind, draw in (("compat", keys._draw_roots), ("fast", keys_chacha._draw_roots),
+                       ("dcf", keys_chacha._draw_roots)):
+        roots = draw(k, np.random.default_rng(42))
+        got = plans.run_gen(kind, alphas, 20, *roots)
+        want = (keys_gen.gen_device_compat(alphas, 20, *roots) if kind == "compat"
+                else keys_gen.gen_device_cc(kind, alphas, 20, *roots))
+        if [k.to_bytes() for k in got] != [k.to_bytes() for k in want]:
+            raise AssertionError(f"plans: run_gen {kind} != gen_device")
+    log(f"[plans eager] gen of compat, fast and dcf at n=20, K={k} (bucket "
+        f"{plans.k_bucket(k)}) == the unpadded card tower")
+
+    pir_store.reset()
+    db = rng.integers(0, 256, size=(pir_rows, 32), dtype=np.uint8)
+    idx = np.linspace(0, pir_rows - 1, 100).astype(np.uint64)
+    for profile in ("compat", "fast"):
+        entry = pir_store.registry().load(f"db-{profile}", db, profile)
+        plans.warmup([{"route": "pir", "db": entry.name, "k": 100}])
+        qa, qb = pir.pir_query(idx, pir_rows, rng, profile)
+        srv = pir.PirServer(db, profile=profile)
+        got = [plans.run_pir(entry, q) for q in (qa, qb)]
+        for g, q in zip(got, (qa, qb)):
+            if not np.array_equal(g, srv.answer(q)):
+                raise AssertionError(f"plans: run_pir {profile} != PirServer.answer")
+        if not np.array_equal(pir.pir_reconstruct(*got), db[idx.astype(np.int64)]):
+            raise AssertionError(f"plans: run_pir {profile} does not reconstruct")
+        log(f"[plans eager] pir {profile} on a registered {pir_rows} x 32 B database, 100 "
+            f"queries (bucket 128) == PirServer.answer; "
+            f"{pir_store.registry().stats()['scans']} scans")
+        del srv
+    pir_store.reset()
+
+    for profile, gen, model in (("compat", P.gen_batch, mdpf), ("fast", fast.gen_batch, mdc)):
+        ka, _ = gen(rng.integers(0, 1 << 16, size=k, dtype=np.uint64), 16, rng)
+        xs = rng.integers(0, 1 << 16, size=(k, 40), dtype=np.uint64)
+        if not np.array_equal(plans.run_hh_level(profile, ka, xs, 5),
+                              model.eval_points_level_grouped(ka, xs, 1, packed=True,
+                                                              levels=(5,))):
+            raise AssertionError(f"plans: run_hh_level {profile} != the grouped walk")
+        st = hh_state.FrontierState(profile, ka)
+        sel = torch.zeros(16, dtype=torch.int64, device=dev)
+        dk = st._dk
+        level = ((dk.scw[:, :1], dk.tcw[:, :1]) if profile == "fast"
+                 else (dk.scw_planes[0], dk.tl_words[0], dk.tr_words[0]))
+        new, rows = plans.run_hh_extend(profile, 16, st.kp, "tree", st.seed_state,
+                                        (sel, *level), q=32)
+        body = model._hh_extend_cc_body if profile == "fast" else model._hh_extend_body
+        want = body(*st.seed_state, sel, *level)
+        if not (np.array_equal(rows, from_carrier(want[-1]))
+                and all(torch.equal(a, b) for a, b in zip(new, want[:-1]))):
+            raise AssertionError(f"plans: run_hh_extend {profile} != the extension body")
+        log(f"[plans eager] hh_level and hh_extend {profile} (n=16, {k} clients) == the "
+            "direct model calls")
+    rows = rng.integers(0, 1 << 32, size=(k, 16), dtype=np.uint64).astype(np.uint32)
+    if not np.array_equal(plans.run_hh_fold(rows, 500), hh_fold.count_fold(rows)[:500]):
+        raise AssertionError("plans: run_hh_fold != count_fold")
+    lo = rng.integers(0, 1 << 31, size=k, dtype=np.uint64)
+    ia, _ = dcf.gen_interval_batch(lo, lo + np.uint64(12345), 32, rng)
+    xs = rng.integers(0, 1 << 32, size=(k, 100), dtype=np.uint64)
+    if not np.array_equal(plans.run_interval(ia, xs),
+                          dcf.eval_interval_points(ia, xs, packed=True)):
+        raise AssertionError("plans: run_interval != eval_interval_points")
+    carry = rows[0]
+    for op in agg.OPS:
+        want = from_carrier(agg._fold_body(op, to_carrier(carry, dev), to_carrier(rows, dev)))
+        if not (np.array_equal(plans.run_agg_fold(op, carry, rows), want)
+                and np.array_equal(plans.run_agg_fold(op, carry, to_carrier(rows, dev)), want)):
+            raise AssertionError(f"plans: run_agg_fold {op} != the fold body")
+    log(f"[plans eager] hh_fold ({k} x 16 words), dcf_interval (n=32, {k} gates x 100), "
+        f"agg_xor and agg_add ({k} x 16 words, host rows and card rows) == the direct calls; "
+        f"{plans.capture_count()} graphs held")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose fast expansion kernels phase 15 "
@@ -2444,6 +2794,11 @@ def main() -> int:
     rows_out.append(dealer_phase(dev, card, n_sm * clock_hz))
     hh_phase(dev, card)
     agg_phase(dev, card)
+    # The dispatch plans: their graphs, traced before the plain versions'
+    # many launches.
+    t0 = time.perf_counter()
+    plans_phase(dev, card)
+    log(f"[plans] phase 40 in {time.perf_counter() - t0:.1f} s")
     rows_out += point_checked(dev, card, n_sm * clock_hz, point_head)
     rows_out += gate_checked(dev, card, n_sm * clock_hz, gate_head)
     # The option kernels' plain versions run last: traces after many small

@@ -12,10 +12,12 @@ wire words) into whole server-side protocol workloads:
   aggregation    secure aggregation: streamed XOR / additive-mod-2^32 folds
                  of client share vectors in chunks, the carry on the card.
 
-``pir_store`` (the sidecar's database registry) comes with the port's
-sidecar.
+  pir_store      named PIR databases resident on the card, with their scan
+                 counters (``core/plans.run_pir`` scans them).
+
+Their dispatches go through the plan cache (``core/plans.py``).
 """
 
-from . import aggregation, heavy_hitters
+from . import aggregation, heavy_hitters, pir_store
 
-__all__ = ["aggregation", "heavy_hitters"]
+__all__ = ["aggregation", "heavy_hitters", "pir_store"]

@@ -16,19 +16,20 @@ core/bitpack.py), and the aggregator's whole job is a fold over clients:
 Both folds are associative with an all-zeros identity, so the aggregator
 streams the upload in chunks of :data:`AGG_CHUNK_BYTES` (the JAX package's
 ``DPF_TPU_AGG_CHUNK_BYTES``, 4 MiB): each chunk goes to the card and folds
-into a running ``[words]`` carry that stays there, so a million-client sum
-never materializes on the host and only the carry comes back.  The folds
-are plain PyTorch, as the JAX package's are XLA outside Pallas: torch has
-no XOR reduction, so the XOR fold halves the rows (``log2 R`` launches);
-the add fold sums in int64 and masks to 32 bits.
+into the running ``[words]`` carry through the plan cache
+(``core/plans.run_agg_fold``, as the reference's folds do: the chunk's rows
+and words padded to their plan bucket, the carry back on the host), so a
+million-client sum never materializes on the host.  The folds are plain
+PyTorch, as the JAX package's are XLA outside Pallas: torch has no XOR
+reduction, so the XOR fold halves the rows (``log2 R`` launches); the add
+fold sums in int64 and masks to 32 bits.
 
 :func:`aggregate_eval_full` closes the loop with the DPF layer: the
 aggregator holds client KEYS and folds their full-domain expansions chunk
 by chunk on the card (the compat or fast ``eval_full_device`` words are
-folded where they are made), the 2-server presence-bitmap protocol with
-only two ``[words]`` vectors crossing back to the caller.  The JAX
-package's plan cache (``core/plans.run_agg_fold``) waits for the port's
-plans.
+folded where they are made, through the same plan route), the 2-server
+presence-bitmap protocol with only ``[words]`` vectors crossing back to
+the host.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import plans
 from ..core.device import resolve_device
-from ..ops.aes_bitslice import from_carrier, to_carrier
 from ..ops.aes_cuda import _fold
 
 __all__ = [
@@ -83,33 +84,24 @@ def chunk_rows(words: int, chunk_bytes: int | None = None) -> int:
     return max(1, int(chunk_bytes) // max(int(words) * 4, 1))
 
 
-def fold_rows(rows: np.ndarray, op: str, carry: np.ndarray | None = None,
+def fold_rows(rows, op: str, carry: np.ndarray | None = None,
               device=None) -> np.ndarray:
-    """Fold one chunk of share rows uint32[R, W] into ``carry`` (zeros when
-    None) on ``device`` (None: the card) -> uint32[W]."""
+    """Fold one chunk of share rows uint32[R, W] (or int32 carriers already
+    on the card) into ``carry`` (zeros when None) on ``device`` (None: the
+    card) -> uint32[W], through the plan cache (``plans.run_agg_fold``)."""
     _check_op(op)
-    rows = np.asarray(rows, dtype=np.uint32)
-    if rows.ndim != 2:
-        raise ValueError("aggregation: rows must be [R, W]")
-    dev = resolve_device(device)
-    if carry is None:
-        c = torch.zeros(rows.shape[1], dtype=torch.int32, device=dev)
-    else:
-        carry = np.asarray(carry, dtype=np.uint32)
-        if carry.shape != (rows.shape[1],):
-            raise ValueError("agg: carry must be [W]")
-        c = to_carrier(carry, dev)
-    return from_carrier(_fold_body(op, c, to_carrier(rows, dev)))
+    return plans.run_agg_fold(op, carry, rows, device=device)
 
 
-def _fold_chunks(chunks, op: str, words: int, dev) -> torch.Tensor:
-    """Fold an iterable of int32 carrier chunks [R_i, words] on ``dev`` into
-    one carry kept on the card."""
-    carry = torch.zeros(int(words), dtype=torch.int32, device=dev)
+def _fold_chunks(chunks, op: str, words: int, dev) -> np.ndarray:
+    """Fold an iterable of chunks [R_i, words] (host words or card
+    carriers) into one uint32[words] vector, a plan dispatch a chunk."""
+    carry = np.zeros(int(words), np.uint32)
     for chunk in chunks:
-        if chunk.dim() != 2 or chunk.shape[1] != words:
+        if chunk.ndim != 2 or chunk.shape[1] != words:
             raise ValueError("aggregation: chunk shape mismatch")
-        carry = _fold_body(op, carry, chunk)
+        if chunk.shape[0]:
+            carry = fold_rows(chunk, op, carry, dev)
     return carry
 
 
@@ -119,15 +111,7 @@ def aggregate_chunks(chunks, op: str, words: int, device=None) -> np.ndarray:
     the carry and one chunk are ever live on the card."""
     _check_op(op)
     dev = resolve_device(device)
-
-    def uploads():
-        for chunk in chunks:
-            chunk = np.asarray(chunk, dtype=np.uint32)
-            if chunk.ndim != 2 or chunk.shape[1] != words:
-                raise ValueError("aggregation: chunk shape mismatch")
-            yield to_carrier(chunk, dev)
-
-    return from_carrier(_fold_chunks(uploads(), op, words, dev))
+    return _fold_chunks((np.asarray(c, dtype=np.uint32) for c in chunks), op, words, dev)
 
 
 def aggregate_rows(rows: np.ndarray, op: str, rows_per_chunk: int | None = None,
@@ -171,7 +155,7 @@ def aggregate_eval_full(kb, op: str = "xor", device=None) -> np.ndarray:
                 out = dpf.eval_full_device(dpf.DeviceKeys(sub, dev))[: sub.k]
             yield out.reshape(sub.k, -1)[:, :words]
 
-    return from_carrier(_fold_chunks(chunks(), op, words, dev))
+    return _fold_chunks(chunks(), op, words, dev)
 
 
 def reconstruct(fold_a: np.ndarray, fold_b: np.ndarray, op: str) -> np.ndarray:

@@ -32,10 +32,11 @@ with its defaults: ``DPF_TPU_HH_LEVELS_PER_ROUND`` (:data:`LEVELS_PER_ROUND`),
 (``state=None``: the incremental descent), ``DPF_TPU_HH_FOLD``
 (``fold="auto"``: the count fold on the evaluation device) and
 ``DPF_TPU_HH_THRESHOLD`` (:data:`THRESHOLD`, 0: the caller must pass one).
-Its plan cache (``core/plans.run_hh_level``, ``run_hh_fold``,
-``run_hh_extend``) waits for the port's plans: the rounds call the models
-directly.  A device failure propagates: the reference's finish-stateless
-recovery has no counterpart.
+The rounds go through the plan cache, as the reference's do:
+``core/plans.run_hh_level`` (a stateless round), ``run_hh_fold`` (the count
+fold on the card) and, in ``apps/hh_state.py``, ``run_hh_extend``.  A device
+failure propagates: the reference's finish-stateless recovery has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..core import bitpack
+from ..core import bitpack, plans
 from ..core.device import resolve_device
 from . import hh_state
 
@@ -182,7 +183,9 @@ def eval_level_shares(share: HHShare, level: int, candidates: np.ndarray,
     level-``level`` key at every candidate on ``device`` (None: the card) ->
     packed share words uint32[G, ceil(Q/32)] (core/bitpack contract;
     candidate ``q`` of client row ``c`` at word q//32, bit q%32).  One walk
-    launch (``walk_bm_kernel`` or ``walk_kernel``).
+    launch (``walk_bm_kernel`` or ``walk_kernel``), through the plan cache
+    (``core/plans.run_hh_level``: one plan per (G, Q) bucket covers every
+    level of a descent).
 
     ``candidates`` are RAW n-bit domain values; bits below the level's
     prefix are masked off on the way in (a depth-``level+1`` prefix ``p`` is
@@ -191,12 +194,7 @@ def eval_level_shares(share: HHShare, level: int, candidates: np.ndarray,
     kb = share.level_keys(level)
     xs = np.broadcast_to(candidates[None, :], (kb.k, candidates.shape[0]))
     hh_state.PRG_EVALS.add(hh_state.stateless_round_evals(kb.nu, kb.k, candidates.shape[0]))
-    if share.profile == "fast":
-        from ..models.dpf_chacha import eval_points_level_grouped
-    else:
-        from ..models.dpf import eval_points_level_grouped
-    return eval_points_level_grouped(kb, xs, groups=1, packed=True, levels=(int(level),),
-                                     device=device)
+    return plans.run_hh_level(share.profile, kb, xs, int(level), device=device)
 
 
 def _host_counts(x: np.ndarray, q: int) -> np.ndarray:
@@ -216,7 +214,7 @@ def reconstruct_counts(rows_a: np.ndarray, rows_b: np.ndarray, q: int, fold: str
     clients -> PUBLIC per-candidate counts int64[q].
 
     ``fold`` (the JAX package's ``DPF_TPU_HH_FOLD``): ``"device"`` sums on
-    ``device`` (None: the card; ``models/hh_fold.count_fold``), ``"host"``
+    ``device`` (None: the card; ``plans.run_hh_fold``), ``"host"``
     takes per-bit popcounts on the host, ``"auto"`` the device fold on the
     card and the host popcounts for ``device="cpu"``.  Counts are additive
     over disjoint client partitions."""
@@ -230,13 +228,11 @@ def reconstruct_counts(rows_a: np.ndarray, rows_b: np.ndarray, q: int, fold: str
         fold = "host" if resolve_device(device).type == "cpu" else "device"
     if fold == "host":
         return _host_counts(x, q)
-    from ..models import hh_fold
-
     qq = min(q, x.shape[1] * 32)  # short rows count 0, as on the host
     counts = np.zeros(q, np.int64)
     if qq:
-        counts[:qq] = hh_fold.count_fold(
-            np.ascontiguousarray(x[:, : bitpack.packed_words(qq)]), device)[:qq]
+        counts[:qq] = plans.run_hh_fold(
+            np.ascontiguousarray(x[:, : bitpack.packed_words(qq)]), qq, device=device)
     return counts
 
 

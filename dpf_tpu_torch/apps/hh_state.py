@@ -1,8 +1,8 @@
 """Frontier state on the card for the incremental heavy-hitter descent.
 
-The port's counterpart of ``dpf_tpu/apps/hh_state.py`` (its descent engine;
-the serving session registry, ``SessionCache``, ``serve_extend`` and
-``warm_ladder`` come with the port's plans and sidecar).
+The port's counterpart of ``dpf_tpu/apps/hh_state.py``: its descent engine
+and :func:`warm_ladder` (the serving session registry, ``SessionCache`` and
+``serve_extend``, come with the port's sidecar).
 
 The stateless driver (apps/heavy_hitters.py) re-walks every candidate from
 the ROOT each round: a level-``l`` evaluation of G clients x Q candidates
@@ -15,7 +15,9 @@ this node's prefix".  This module caches that walk: the per-client seeds and
 control bits at the current surviving frontier stay on the card between
 rounds, and each round extends every cached parent ONE level (both children
 in one launch: the compat profile's ``prg_canon_kernel``, the fast profile's
-``fused_levels_kernel``) for ``G * parents`` PRG expansions.
+``fused_levels_kernel``) for ``G * parents`` PRG expansions.  Every
+extension goes through the plan cache (``core/plans.run_hh_extend``), which
+brings back only the round's packed rows.
 
 Past the tree depth ``nu`` the cached seeds convert to leaf state ONCE
 (``leaf_first``: the compat leaf MMO, or a 0-level ``expand_tail_kernel``
@@ -32,10 +34,10 @@ byte-identical by construction.  A device failure is not such a case: it
 propagates.  The frontier is pruned on the PUBLICLY reconstructed survivor
 set, the same public output the stateless protocol reveals.
 
-The reference's plan buckets (``plans.q_bucket``, ``plans._pow2_bucket``)
-shape the column axis here too: the column bucket ``cb`` only grows, and
-padding columns repeat column 0, as the reference's ``_sel`` does.  They
-change shapes only; the rows emitted are the reference's.
+The plan buckets (``plans.q_bucket``) shape the column axis: the column
+bucket ``cb`` only grows, and padding columns repeat column 0, as the
+reference's ``_sel`` does.  They change shapes only; the rows emitted are
+the reference's.
 """
 
 from __future__ import annotations
@@ -43,15 +45,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import bitpack
+from ..core import bitpack, plans
 from ..core.device import resolve_device
-from ..ops.aes_bitslice import from_carrier
 
 __all__ = [
     "StaleState",
     "PRG_EVALS",
     "FrontierState",
     "stateless_round_evals",
+    "warm_ladder",
 ]
 
 
@@ -87,18 +89,6 @@ def stateless_round_evals(nu: int, g: int, q: int) -> int:
     (client, candidate) pair walks ``nu`` GGM levels + one leaf conversion
     regardless of the requested level."""
     return int(g) * int(q) * (int(nu) + 1)
-
-
-def _pow2_bucket(n: int, floor: int = 1) -> int:
-    """The least power of two >= max(n, floor, 1) (``plans._pow2_bucket``)."""
-    n = max(int(n), int(floor), 1)
-    return 1 << (n - 1).bit_length()
-
-
-def q_bucket(q: int) -> int:
-    """Column bucket: a power-of-two multiple of the 32-bit packed word
-    (``plans.q_bucket``)."""
-    return _pow2_bucket(q, 32)
 
 
 def _children(parents: np.ndarray) -> np.ndarray:
@@ -141,10 +131,12 @@ class FrontierState:
             from ..models.dpf_chacha import DeviceKeysFast
 
             self._dk = DeviceKeysFast(kb, self.device)
+            self.kp = self.g
         else:
             from ..models import dpf
 
             self._dk = dpf._cached_device_keys(kb, self.device)
+            self.kp = self._dk.k_padded
         self.reset()
 
     # -- lifecycle ---------------------------------------------------
@@ -222,44 +214,36 @@ class FrontierState:
             self.emitted[np.minimum(pos, self.emitted.size - 1)] != parents
         ).any():
             raise StaleState("round ancestors not in cached frontier")
-        cbn = max(self.cb, q_bucket(2 * parents.size))
+        cbn = max(self.cb, plans.q_bucket(2 * parents.size))
         sel = np.zeros(cbn // 2, np.int64)
         sel[: pos.size] = pos
         return self._index(sel), cbn
 
-    def _tree_step(self, di: int, parents, sel, cbn: int) -> torch.Tensor:
+    def _extend(self, phase: str, args: tuple, cbn: int, m: int = 0):
+        return plans.run_hh_extend(self.profile, self.log_n, self.kp, phase,
+                                   self.seed_state, args, q=cbn, m=m, ibits=self.ibits,
+                                   device=self.device)
+
+    def _tree_step(self, di: int, parents, sel, cbn: int) -> np.ndarray:
         dk, lv = self._dk, di - 1
         if self.profile == "fast":
-            from ..models.dpf_chacha import _hh_extend_cc_body
-
-            state, rows = _hh_extend_cc_body(self.seed_state[0], sel, dk.scw[:, lv:lv + 1],
-                                             dk.tcw[:, lv:lv + 1])
-            self.seed_state = (state,)
+            level = (dk.scw[:, lv:lv + 1], dk.tcw[:, lv:lv + 1])
         else:
-            from ..models.dpf import _hh_extend_body
-
-            S, T, rows = _hh_extend_body(*self.seed_state, sel, dk.scw_planes[lv],
-                                         dk.tl_words[lv], dk.tr_words[lv])
-            self.seed_state = (S, T)
+            level = (dk.scw_planes[lv], dk.tl_words[lv], dk.tr_words[lv])
+        self.seed_state, rows = self._extend("tree", (sel, *level), cbn)
         PRG_EVALS.add(self.g * parents.size)
         self.emitted = _children(parents)
         self.depth = di
         self.cb = cbn
         return rows
 
-    def _leaf_first(self, anc, sel, cbn: int) -> torch.Tensor:
+    def _leaf_first(self, anc, sel, cbn: int) -> np.ndarray:
         dk = self._dk
         if self.profile == "fast":
-            from ..models.dpf_chacha import _hh_leaf_first_cc_body
-
-            planes, rows = _hh_leaf_first_cc_body(
-                self.ibits, self.seed_state[0], sel, dk.scw[:, self.nu:],
-                dk.tcw[:, self.nu:], dk.fcw)
+            args = (sel, dk.scw[:, self.nu:], dk.tcw[:, self.nu:], dk.fcw)
         else:
-            from ..models.dpf import _hh_leaf_first_body
-
-            planes, rows = _hh_leaf_first_body(self.ibits, *self.seed_state, sel,
-                                               dk.fcw_planes)
+            args = (sel, dk.fcw_planes)
+        (planes,), rows = self._extend("leaf_first", args, cbn)
         PRG_EVALS.add(self.g * anc.size)
         self.planes = planes
         self.seed_state = (planes,)
@@ -277,23 +261,18 @@ class FrontierState:
             self.anc[np.minimum(anc_pos, self.anc.size - 1)] != (cands >> np.uint64(m))
         ).any():
             raise StaleState("leaf ancestors not in converted planes")
-        cbn = max(self.cb, q_bucket(cands.size))
+        cbn = max(self.cb, plans.q_bucket(cands.size))
         idx = np.zeros(cbn, np.int64)
         idx[: cands.size] = (anc_pos.astype(np.int64) << m) | (
             cands & np.uint64((1 << m) - 1)).astype(np.int64)
         self.cb = cbn
-        if self.profile == "fast":
-            from ..models.dpf_chacha import _hh_leaf_fold_cc_body as fold
-        else:
-            from ..models.dpf import _hh_leaf_fold_body as fold
-        rows = fold(m, self.ibits, self.planes, self._index(idx))
+        _, rows = self._extend("leaf_fold", (self._index(idx),), cbn, m)
         return bitpack.mask_tail(
-            np.ascontiguousarray(
-                from_carrier(rows[: self.g, : bitpack.packed_words(cands.size)])),
+            np.ascontiguousarray(rows[: self.g, : bitpack.packed_words(cands.size)]),
             cands.size,
         )
 
-    def _gather(self, rows: torch.Tensor, cands: np.ndarray) -> np.ndarray:
+    def _gather(self, rows: np.ndarray, cands: np.ndarray) -> np.ndarray:
         """Re-pack the requested candidate columns (request order) out of
         the emitted column order of the last device rows."""
         pos = np.searchsorted(self.emitted, cands)
@@ -301,5 +280,28 @@ class FrontierState:
             self.emitted[np.minimum(pos, self.emitted.size - 1)] != cands
         ).any():
             raise StaleState("requested candidates not in emitted columns")
-        bits = bitpack.unpack_bits(from_carrier(rows[: self.g]), self.emitted.size)
+        bits = bitpack.unpack_bits(rows[: self.g], self.emitted.size)
         return bitpack.pack_bits(bits[:, pos])
+
+
+def warm_ladder(profile: str, log_n: int, k: int, q: int, *, device=None) -> None:
+    """Drive one synthetic maximal descent (every candidate survives until
+    the ``q`` cap, one level a round) over a zero key batch dealt on
+    ``device``: it visits the bucket ladder 32, 64, ..., ``q`` of every
+    ``hh_extend`` phase (tree growth and steady state, the leaf crossing,
+    every intra-leaf fold depth), the shapes a saturating session touches
+    (``core/plans.warmup`` route ``hh_extend``)."""
+    from . import heavy_hitters as hh
+
+    gen, _, _ = hh._profile_api(profile)
+    ka, _ = gen(np.zeros(max(int(k), 1), np.uint64), int(log_n),
+                rng=np.random.default_rng(0), device=device)
+    st = FrontierState(profile, ka, device=device)
+    q = max(plans.q_bucket(max(int(q), 2)), 32)
+    frontier = np.zeros(1, np.uint64)
+    for d in range(1, int(log_n) + 1):
+        cands = _children(frontier)
+        st.advance(cands, d)
+        frontier = cands
+        if 2 * frontier.size > q:
+            frontier = frontier[: q // 2]

@@ -132,8 +132,9 @@ def gen_batch(
     Mirror of the reference Gen (dpf/dpf.go:71-169).  ``rng=None`` draws the
     root seeds from OS entropy; a seeded ``np.random.Generator`` gives the
     same key bytes as ``dpf_tpu.gen_batch`` with an equal generator.  The
-    tower runs on ``device``: None is the card (``keys_gen.
-    gen_device_compat``), ``"cpu"`` the host tower; the bytes are the same."""
+    tower runs on ``device``: None is the card (through the plan cache,
+    ``plans.run_gen``, onto ``keys_gen.gen_device_compat``), ``"cpu"`` the
+    host tower; the bytes are the same."""
     alphas = np.asarray(alphas, dtype=np.uint64)
     K = alphas.shape[0]
     if log_n > 63 or (alphas >= (np.uint64(1) << np.uint64(log_n))).any():
@@ -142,9 +143,9 @@ def gen_batch(
     s0, t0, s1, t1 = _draw_roots(K, rng)
     if dev.type == "cpu":
         return _gen_from_roots(alphas, log_n, s0, t0, s1, t1)
-    from ..models import keys_gen
+    from . import plans
 
-    return keys_gen.gen_device_compat(alphas, log_n, s0, t0, s1, t1, device=dev)
+    return plans.run_gen("compat", alphas, log_n, s0, t0, s1, t1, device=dev)
 
 
 def _gen_from_roots(

@@ -134,7 +134,8 @@ def gen_batch(
 ) -> tuple[KeyBatchFast, KeyBatchFast]:
     """Fast-profile Gen: root seeds drawn on the host, then the
     correction-word tower on ``device``: None is the card (one
-    ``gen_tower`` launch), ``"cpu"`` the host tower of
+    ``gen_tower`` launch, through ``plans.run_gen``), ``"cpu"`` the host
+    tower of
     :func:`_gen_from_roots`; the bytes are the same."""
     alphas = np.asarray(alphas, dtype=np.uint64)
     K = alphas.shape[0]
@@ -144,9 +145,9 @@ def gen_batch(
     s0, t0, s1, t1 = _draw_roots(K, rng)
     if dev.type == "cpu":
         return _gen_from_roots(alphas, log_n, s0, t0, s1, t1)
-    from ..models import keys_gen
+    from . import plans
 
-    return keys_gen.gen_device_cc("fast", alphas, log_n, s0, t0, s1, t1, device=dev)
+    return plans.run_gen("fast", alphas, log_n, s0, t0, s1, t1, device=dev)
 
 
 def _gen_from_roots(

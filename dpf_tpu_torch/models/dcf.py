@@ -159,9 +159,9 @@ def gen_lt_batch(
     s0, t0, s1, t1 = _draw_roots(K, rng)
     if dev.type == "cpu":
         return _gen_lt_from_roots(alphas, log_n, s0, t0, s1, t1)
-    from . import keys_gen
+    from ..core import plans
 
-    return keys_gen.gen_device_cc("dcf", alphas, log_n, s0, t0, s1, t1, device=dev)
+    return plans.run_gen("dcf", alphas, log_n, s0, t0, s1, t1, device=dev)
 
 
 def _gen_lt_from_roots(

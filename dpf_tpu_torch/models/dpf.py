@@ -15,7 +15,10 @@ default) and ``"pallas_bm_il"`` hold the level state in bit-major plane order
 (``aes_cuda._TO_BM``) for the whole expansion and the leaf convert emits
 canonical order; ``"pallas"`` and ``"xla"`` keep it canonical throughout.
 ``fuse=g`` on a bit-major backend runs the levels from ``_FUSE_FLOOR`` down
-as groups of at most g levels, each one ``fused_levels_planes`` launch.  The
+as groups of at most g levels, each one ``fused_levels_planes`` launch.
+``backend=None`` and ``fuse=None`` read the knobs ``DPF_CUDA_PRG`` (unset:
+``"pallas_bm"``) and ``DPF_CUDA_FUSE`` (unset: ``"off"``; ``core/knobs.py``),
+as the JAX package's read ``DPF_TPU_PRG`` and ``DPF_TPU_FUSE``.  The
 PRG, the leaf convert (the leaf MMO, the final CW and the unpack to per-key
 words, one launch) and the fused levels are the CUDA kernels of
 ``ops/aes_cuda.py`` on the card and their plain versions on the CPU; the glue
@@ -40,10 +43,13 @@ for its kernel; the port's kernel takes any K, and the rows are the same.
 
 from __future__ import annotations
 
+import copy
+import functools
+
 import numpy as np
 import torch
 
-from ..core import bitpack
+from ..core import bitpack, knobs
 from ..core.device import resolve_device
 from ..core.keys import KeyBatch
 from ..core.stream import chunk_levels, stream_chunks
@@ -54,6 +60,7 @@ from ..ops.aes_bitslice import (
 )
 from ..ops.aes_cuda import (
     _TO_BM,
+    FUSE_MAX_LEVELS,
     _fold,
     convert_leaves_bm,
     convert_leaves_bm_plain,
@@ -104,10 +111,11 @@ _FUSED_IMPLS = {None: fused_levels_planes, "plain": fused_levels_planes_plain}
 
 
 def _resolve_backend(backend: str | None) -> str:
-    """``None`` means ``"pallas_bm"``; any other name must be one of the JAX
-    package's (``dpf_tpu.models.dpf._PRG_IMPLS``)."""
+    """``None`` means the knob ``DPF_CUDA_PRG``, and ``"pallas_bm"`` where it
+    is unset (``dpf_tpu.models.dpf.default_backend``); any name must be one
+    of the JAX package's (``dpf_tpu.models.dpf._PRG_IMPLS``)."""
     if backend is None:
-        return "pallas_bm"
+        backend = knobs.get_raw("DPF_CUDA_PRG") or "pallas_bm"
     if backend not in _IMPLS:
         raise ValueError(f"backend {backend!r} unknown; choose from {sorted(_IMPLS)}")
     return backend
@@ -165,6 +173,21 @@ class DeviceKeys:
             self.tr_words = torch.zeros((0, kp), dtype=torch.int32, device=dev)
         self.fcw_planes = pack_words(padk(kb.fcw)[:, None, :])  # [128, 1, Kp]
 
+    # The tensors of the key material, in the order of :meth:`tensors`.
+    FIELDS = ("seed_planes", "t_words", "scw_planes", "tl_words", "tr_words",
+              "fcw_planes")
+
+    def tensors(self) -> tuple:
+        return tuple(getattr(self, f) for f in self.FIELDS)
+
+    def with_tensors(self, tensors) -> "DeviceKeys":
+        """A copy of these keys whose tensors are ``tensors`` (same shapes:
+        a dispatch plan's static inputs)."""
+        dk = copy.copy(self)
+        for f, t in zip(self.FIELDS, tensors, strict=True):
+            setattr(dk, f, t)
+        return dk
+
 
 # ---------------------------------------------------------------------------
 # Expansion steps
@@ -191,11 +214,18 @@ def _level_step(S, T, cw_plane, tl_w, tr_w, prg):
     return S, T
 
 
+@functools.cache
+def _bm_index(device: torch.device) -> torch.Tensor:
+    """int64[128]: ``_TO_BM`` on ``device``, made once per device (so that
+    no call of a captured body copies it from the host)."""
+    return torch.as_tensor(_TO_BM, dtype=torch.long, device=device)
+
+
 def _to_bm(seed_planes, scw_planes):
     """Canonical -> bit-major plane order for the level-state inputs: the
     [128, 1, Kp] seeds and the [nu, 128, Kp] CWs (the leaf convert emits
     canonical order, so the big leaf-level tensors are never permuted)."""
-    idx = torch.as_tensor(_TO_BM, dtype=torch.long, device=scw_planes.device)
+    idx = _bm_index(scw_planes.device)
     return seed_planes.index_select(0, idx), scw_planes.index_select(1, idx)
 
 
@@ -231,14 +261,32 @@ def _fuse_schedule(n_levels, g, floor=_FUSE_FLOOR):
     return floor, tuple(groups)
 
 
+def _fuse_request() -> int:
+    """The knob ``DPF_CUDA_FUSE`` as a group size (``dpf_tpu.ops.
+    fuse_request``): ``off`` 0, ``auto`` ``FUSE_MAX_LEVELS`` (the most levels
+    one ``fused_levels_bm_kernel`` launch runs), or the number given."""
+    env = knobs.get_str("DPF_CUDA_FUSE")
+    if env == "off":
+        return 0
+    if env == "auto":
+        return FUSE_MAX_LEVELS
+    try:
+        g = int(env)
+    except ValueError:
+        raise ValueError(f"DPF_CUDA_FUSE={env!r} invalid; use off|auto|<levels>") from None
+    if g < 0:
+        raise ValueError("DPF_CUDA_FUSE must be >= 0")
+    return g
+
+
 def _fuse_plan(nu: int, backend: str, fuse: int | None):
     """The fused route's schedule, or None for the per-level pipeline.
-    ``fuse``: None or 0 = off (the JAX package's knob default), g >= 1 =
-    groups of <= g levels.  The fused state is bit-major: the canonical
-    backends keep the per-level path."""
-    if backend not in _BM_BACKENDS or fuse is None:
+    ``fuse``: None = the knob (:func:`_fuse_request`; off by default, as in
+    the JAX package), 0 = off, g >= 1 = groups of <= g levels.  The fused
+    state is bit-major: the canonical backends keep the per-level path."""
+    if backend not in _BM_BACKENDS:
         return None
-    return _fuse_schedule(nu, fuse)
+    return _fuse_schedule(nu, _fuse_request() if fuse is None else fuse)
 
 
 def _fused_groups(S, T, scw_planes, tl_w, tr_w, first, groups, fused):
@@ -268,10 +316,11 @@ def eval_full_device(
     The returned words ARE the bit-packed output: word q of leaf w holds
     domain bits [128*w + 32*q, 128*w + 32*q + 32), LSB-first.
 
-    ``backend``: ``"pallas_bm"`` (None), ``"pallas_bm_il"``, ``"pallas"``
-    or ``"xla"`` (module docstring); every one gives the same words.
-    ``fuse``: level-fused group size for the bit-major backends (None or 0
-    = off, g >= 1 = groups of <= g levels from level ``_FUSE_FLOOR``).  As
+    ``backend``: ``"pallas_bm"``, ``"pallas_bm_il"``, ``"pallas"`` or
+    ``"xla"``, None the knob (module docstring); every one gives the same
+    words.  ``fuse``: level-fused group size for the bit-major backends
+    (None = the knob ``DPF_CUDA_FUSE``, 0 = off, g >= 1 = groups of <= g
+    levels from level ``_FUSE_FLOOR``).  As
     in the JAX package, the fused route covers the unchunked path; domains
     split into subtree chunks run per level with the chosen backend.
 
@@ -493,7 +542,7 @@ def _leaf_select(low: torch.Tensor) -> torch.Tensor:
 
 def _to_bm_masks(seed_masks, scw_masks):
     """The walk's level-state inputs in bit-major plane order."""
-    idx = torch.as_tensor(_TO_BM, dtype=torch.long, device=seed_masks.device)
+    idx = _bm_index(seed_masks.device)
     return seed_masks.index_select(0, idx), scw_masks.index_select(1, idx)
 
 

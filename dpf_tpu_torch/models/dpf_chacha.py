@@ -59,6 +59,8 @@ for every (nu, K, cap).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -215,6 +217,20 @@ class DeviceKeysFast:
     def root_state(self) -> torch.Tensor:
         """Level-0 state int32[5, K, 1]."""
         return torch.cat([self.seeds.T, self.ts[None]])[:, :, None].contiguous()
+
+    # The operand tensors, in the order of :meth:`tensors`.
+    FIELDS = ("seeds", "ts", "scw", "tcw", "fcw")
+
+    def tensors(self) -> tuple:
+        return tuple(getattr(self, f) for f in self.FIELDS)
+
+    def with_tensors(self, tensors) -> "DeviceKeysFast":
+        """A copy of these keys whose tensors are ``tensors`` (same shapes:
+        a dispatch plan's static inputs)."""
+        dk = copy.copy(self)
+        for f, t in zip(self.FIELDS, tensors, strict=True):
+            setattr(dk, f, t)
+        return dk
 
 
 # ---------------------------------------------------------------------------

@@ -31,11 +31,14 @@ secret index.
 :func:`gen_device_cc` and :func:`gen_device_compat` run on ``device`` (None:
 the card).  On the card they launch the kernels or raise; with
 ``device="cpu"`` they run the plain versions, which the CPU tests hold
-against the JAX package.  The ``gen_batch`` entry points route a CPU request
-to the host numpy tower instead (cheaper there) and never fall back to it.
-The JAX package's routing knob (``DPF_TPU_GEN``), its fallback counter and
-``host_only()`` have no counterpart here, nor its plan buckets, donation and
-mesh sharding.
+against the JAX package.  Their ``kp`` pads the drawn roots with zero rows
+to a plan's K bucket (the pad lanes tower keys that are sliced off).  The
+``gen_batch`` entry points send a card request through the plan cache
+(``core/plans.run_gen``, as the JAX package's do) and a CPU request to the
+host numpy tower (cheaper there), and never fall back to it; :func:`warm`
+warms one gen plan.  The JAX package's routing knob (``DPF_TPU_GEN``), its
+fallback counter and ``host_only()`` have no counterpart here, nor its
+donation and mesh sharding.
 """
 
 from __future__ import annotations
@@ -215,32 +218,41 @@ def _fast_low(alphas: np.ndarray, log_n: int) -> np.ndarray:
     return alphas
 
 
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """Zero-pad axis 0 to ``n`` rows (``dpf_tpu``'s ``keys_gen._pad_rows``)."""
+    if a.shape[0] >= n:
+        return a
+    return np.concatenate([a, np.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
+
+
 def gen_device_cc(kind: str, alphas: np.ndarray, log_n: int, s0: np.ndarray,
-                  t0: np.ndarray, s1: np.ndarray, t1: np.ndarray, *, device=None):
+                  t0: np.ndarray, s1: np.ndarray, t1: np.ndarray, kp: int = 0, *,
+                  device=None):
     """ChaCha-tree Gen (``kind`` ``"fast"`` or ``"dcf"``) on ``device`` (None:
     the card): drawn roots (uint32[K, 4] seeds, uint8[K] control bits) ->
     (key_a, key_b), byte-identical to the host tower on the same roots.  On
-    the card the tower is one ``gen_tower`` launch; the roots go up and the
-    CWs come down once each."""
+    the card the tower is one ``gen_tower`` launch over ``max(K, kp)`` lanes
+    (zero roots past K); the roots go up and the CWs come down once each."""
     if kind not in ("fast", "dcf"):
         raise ValueError(f"gen: unknown kind {kind!r} (fast|dcf)")
     dev = resolve_device(device)
     K = alphas.shape[0]
     nu = cc.nu_of(log_n)
     dcf = kind == "dcf"
-    args = (s0, s1, t0.astype(np.uint32), t1.astype(np.uint32),
-            np.ascontiguousarray(_alpha_bits(alphas, log_n, nu)))
-    out = chacha_cuda.gen_tower(*(to_carrier(np.ascontiguousarray(a), dev) for a in args),
-                                dcf)
-    scw = from_carrier(out[0].transpose(0, 1).contiguous())  # [K, nu, 4]
-    tcw = from_carrier(torch.stack([out[1].T, out[2].T], dim=2)).astype(np.uint8)
-    conv_diff = from_carrier(out[3]).copy()
+    bits = _pad_rows(_alpha_bits(alphas, log_n, nu).T, kp).T
+    args = (s0, s1, t0.astype(np.uint32), t1.astype(np.uint32))
+    out = chacha_cuda.gen_tower(
+        *(to_carrier(_pad_rows(np.ascontiguousarray(a), kp), dev) for a in args),
+        to_carrier(np.ascontiguousarray(bits), dev), dcf)
+    scw = from_carrier(out[0][:, :K].transpose(0, 1).contiguous())  # [K, nu, 4]
+    tcw = from_carrier(torch.stack([out[1][:, :K].T, out[2][:, :K].T], dim=2)).astype(np.uint8)
+    conv_diff = from_carrier(out[3][:K]).copy()
     low = _fast_low(alphas, log_n)
     if dcf:
         from . import dcf as dcf_mod
 
         fvcw = conv_diff ^ dcf_mod._lt_leaf_mask(low)
-        vcw = from_carrier(out[4].T.contiguous()).astype(np.uint8)
+        vcw = from_carrier(out[4][:, :K].T.contiguous()).astype(np.uint8)
 
         def mk(root, rt):
             return dcf_mod.DcfKeyBatch(log_n, root, rt, scw.copy(), tcw.copy(),
@@ -259,13 +271,13 @@ def gen_device_cc(kind: str, alphas: np.ndarray, log_n: int, s0: np.ndarray,
 
 
 def gen_device_compat(alphas: np.ndarray, log_n: int, s0: np.ndarray, t0: np.ndarray,
-                      s1: np.ndarray, t1: np.ndarray, *, device=None):
+                      s1: np.ndarray, t1: np.ndarray, kp: int = 0, *, device=None):
     """AES-compat Gen on bitsliced planes on ``device`` (None: the card):
     drawn roots (uint8[K, 16] seeds, uint8[K] control bits) -> (key_a,
-    key_b), byte-identical to the host tower on the same roots.  K pads to
-    whole 32-key lane words (the pad lanes tower garbage keys that are
-    sliced off; the roots are drawn for the actual K, as the rng order is
-    part of the byte-identity contract)."""
+    key_b), byte-identical to the host tower on the same roots.  ``max(K,
+    kp)`` pads to whole 32-key lane words (the pad lanes tower garbage keys
+    that are sliced off; the roots are drawn for the actual K, as the rng
+    order is part of the byte-identity contract)."""
     from ..core.keys import KeyBatch
 
     dev = resolve_device(device)
@@ -276,10 +288,11 @@ def gen_device_compat(alphas: np.ndarray, log_n: int, s0: np.ndarray, t0: np.nda
             KeyBatch(log_n, root.view("<u4"), rt, np.zeros((0, nu, 4), np.uint32),
                      np.zeros((0, nu, 2), np.uint8), np.zeros((0, 4), "<u4"))
             for root, rt in ((s0, t0), (s1, t1)))
-    w = -(-K // 32)
+    w = -(-max(K, kp) // 32)
     bm = _pack_lane_bits(_alpha_bits(alphas, log_n, nu), w)
     t0_w = _pack_lane_bits(t0.astype(np.uint32), w)
-    args = (pack_blocks_np(s0), pack_blocks_np(s1), t0_w, t0_w ^ np.uint32(0xFFFFFFFF), bm)
+    args = (pack_blocks_np(_pad_rows(s0, 32 * w)), pack_blocks_np(_pad_rows(s1, 32 * w)),
+            t0_w, t0_w ^ np.uint32(0xFFFFFFFF), bm)
     scw_d, tl_d, tr_d, fcw_d = _gen_compat_body(nu, *(to_carrier(a, dev) for a in args))
 
     scw = np.ascontiguousarray(from_carrier(scw_d)[:K])
@@ -294,3 +307,20 @@ def gen_device_compat(alphas: np.ndarray, log_n: int, s0: np.ndarray, t0: np.nda
         return KeyBatch(log_n, root.view("<u4"), rt, scw.copy(), tcw.copy(), fcw)
 
     return mk(s0, t0), mk(s1, t1)
+
+
+def warm(kind: str, log_n: int, k: int, rng, *, device=None) -> None:
+    """Warm the gen plan of one (kind, log_n, K bucket): draw roots the way
+    the host gen draws them and run the card route once
+    (``dpf_tpu.models.keys_gen.warm``)."""
+    from ..core import plans
+
+    alphas = np.zeros(k, np.uint64)
+    if kind == "compat":
+        from ..core.keys import _draw_roots
+    elif kind in ("fast", "dcf"):
+        from ..core.keys_chacha import _draw_roots
+    else:
+        raise ValueError(f"gen: unknown kind {kind!r} (compat|fast|dcf)")
+    s0, t0, s1, t1 = _draw_roots(k, rng)
+    plans.run_gen(kind, alphas, log_n, s0, t0, s1, t1, device=device)

@@ -27,8 +27,12 @@ the slab count changes only the loop bounds, never the answer bytes.
 
 The database lives on ``device`` (None: the card) as int32 carriers of
 its little-endian words, ``[dom, row_bytes / 4]``, rows zero-padded to the
-full leaf domain.  The mesh (sharded) routes and the reference's knobs
-are not ported; their defaults are the module constants below.
+full leaf domain.  The knobs ``DPF_CUDA_PIR_CHUNK_ROWS`` and
+``DPF_CUDA_PIR_DB_CHUNK_BYTES`` (``core/knobs.py``) give the chunking's
+defaults, and the compat selection expansion follows ``DPF_CUDA_PRG`` and
+``DPF_CUDA_FUSE`` as full-domain evaluation does (the reference's fuse
+route, without its failure latch).  The mesh (sharded) routes are not
+ported.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import functools
 import numpy as np
 import torch
 
-from ..core import bitpack
+from ..core import bitpack, knobs
 from ..core.device import resolve_device
 from ..core.keys import gen_batch
 from ..core.keys_chacha import KeyBatchFast
@@ -51,12 +55,6 @@ from . import dpf_chacha as mdc
 # Leaf width (log2 bits) per profile: compat = one AES block, fast = one
 # ChaCha block (core/chacha_np.LEAF_LOG).
 _LEAF_LOG = {"compat": 7, "fast": 9}
-
-# Rows per parity-product chunk (the reference's DPF_TPU_PIR_CHUNK_ROWS
-# default) and the resident database bytes above which the scan streams
-# (its DPF_TPU_PIR_DB_CHUNK_BYTES default; 0 disables streaming).
-DPF_TPU_PIR_CHUNK_ROWS = 1 << 16
-DPF_TPU_PIR_DB_CHUNK_BYTES = 1 << 28
 
 # torch._int_mm on CUDA wants more than 16 rows and inner and column sizes
 # that are multiples of 8: the selection rows are zero-padded to this many
@@ -116,13 +114,13 @@ class PirServer:
     """One server's database, on ``device`` (None: the card).
 
     ``db``: uint8[N, row_bytes]; both servers hold identical copies.
-    ``chunk_rows``: rows per parity-product chunk (default
-    ``DPF_TPU_PIR_CHUNK_ROWS``), rounded down to a power of two of at
+    ``chunk_rows``: rows per parity-product chunk (None: the knob
+    ``DPF_CUDA_PIR_CHUNK_ROWS``), rounded down to a power of two of at
     least 128 and at most the domain: chunking changes only the schedule,
     never the answer.  ``db_chunk_bytes``: resident bytes above which the
-    scan streams slab by slab (default ``DPF_TPU_PIR_DB_CHUNK_BYTES``; 0
-    disables streaming).  Without CUDA the constructor raises unless the
-    caller passes ``device="cpu"``."""
+    scan streams slab by slab (None: the knob
+    ``DPF_CUDA_PIR_DB_CHUNK_BYTES``; 0 disables streaming).  Without CUDA
+    the constructor raises unless the caller passes ``device="cpu"``."""
 
     def __init__(
         self,
@@ -149,10 +147,10 @@ class PirServer:
         # up 1:1 with expansion output words (and to whole chunks).
         self.dom = dom
         if chunk_rows is None:
-            chunk_rows = DPF_TPU_PIR_CHUNK_ROWS
+            chunk_rows = knobs.get_int("DPF_CUDA_PIR_CHUNK_ROWS")
         self.chunk_rows = min(_pow2_floor(max(int(chunk_rows), 128)), dom)
         if db_chunk_bytes is None:
-            db_chunk_bytes = DPF_TPU_PIR_DB_CHUNK_BYTES
+            db_chunk_bytes = knobs.get_int("DPF_CUDA_PIR_DB_CHUNK_BYTES")
         if db_chunk_bytes > 0 and dom * self.row_bytes > db_chunk_bytes:
             rows_per = _pow2_floor(max(db_chunk_bytes // self.row_bytes, 1))
             self.stream_rows = min(max(rows_per, 128), dom)
@@ -269,14 +267,15 @@ def _parity_matmul(sel_words: torch.Tensor, db_words: torch.Tensor,
 
 def _expand_sel_planes(dk: mdpf.DeviceKeys) -> torch.Tensor:
     """The compat profile's selection words int32[K_padded, dom/32] in
-    ascending row order (row 128 w + 32 q + bit, LSB-first): the
-    reference's per-level route (its fuse knob defaults to off) on the
-    ``pallas_bm`` kernels, nu ``prg_bm_kernel`` launches and one
-    ``leaf_words_bm_kernel``, with no subtree chunking."""
-    prg, convert = mdpf._IMPLS["pallas_bm"][None]
-    seeds, scw = mdpf._to_bm(dk.seed_planes, dk.scw_planes)
-    S, T = mdpf._expand(dk.nu, 0, seeds, dk.t_words, scw, dk.tl_words, dk.tr_words, prg)
-    leaves = convert(S, T, dk.fcw_planes)  # [K_padded, W, 4]
+    ascending row order (row 128 w + 32 q + bit, LSB-first), with no
+    subtree chunking, on the knobs' backend (``DPF_CUDA_PRG``): per level
+    by default, nu ``prg_bm_kernel`` launches and one
+    ``leaf_words_bm_kernel``; with ``DPF_CUDA_FUSE`` on, the reference's
+    fuse route (``dpf_tpu/models/pir.py:251-266``, ``:346-361``):
+    ``_fuse_plan``'s schedule, the levels from ``_FUSE_FLOOR`` down on
+    ``fused_levels_bm_kernel``.  The words are the same either way."""
+    whole = (1 << dk.nu) * (dk.k_padded // 32)  # one expansion: no chunks
+    leaves = mdpf.eval_full_device(dk, whole)  # [K_padded, W, 4]
     return leaves.reshape(leaves.shape[0], -1)
 
 

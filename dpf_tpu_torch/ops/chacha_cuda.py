@@ -50,6 +50,7 @@ import torch
 
 from ..core import bitpack
 from ..core import chacha_np as cc
+from ..core.device import resolve_device
 from . import build
 from .aes_bitslice import from_carrier, to_carrier
 
@@ -318,12 +319,13 @@ def _walk_common_operands(kb, key_level, lowmask, dev):
     return tuple(to_carrier(a, dev) for a in (meta, kb.seeds.T, scw_t, tcw_t))
 
 
-def walk_operands(kb, groups: int = 0, device="cpu"):
-    """(meta, seeds_t, scw_t, tcw_t, fcw_t) for the walk on ``device``,
-    memoized per key batch, ``groups`` and device (key material is immutable
-    once evaluated).  ``groups`` > 0: a level-grouped FSS batch, whose
-    key_level and lowmask come from ``chacha_np.grouped_masks``."""
-    dev = torch.device(device)
+def walk_operands(kb, groups: int = 0, device=None):
+    """(meta, seeds_t, scw_t, tcw_t, fcw_t) for the walk on ``device``
+    (None: the card), memoized per key batch, ``groups`` and device (key
+    material is immutable once evaluated).  ``groups`` > 0: a level-grouped
+    FSS batch, whose key_level and lowmask come from
+    ``chacha_np.grouped_masks``."""
+    dev = resolve_device(device)
     cache = kb._walk_ops
     if (groups, dev) in cache:
         return cache[(groups, dev)]
@@ -451,14 +453,15 @@ def walk(meta, seeds_t, scw_t, tcw_t, fcw_t, xs_lo, xs_hi, log_n: int,
 walk.launches = 0
 
 
-def walk_args(kb, xs: np.ndarray, groups: int = 0, device="cpu") -> tuple:
-    """The arguments of :func:`walk` for ``xs`` on ``device``: the key
+def walk_args(kb, xs: np.ndarray, groups: int = 0, device=None) -> tuple:
+    """The arguments of :func:`walk` for ``xs`` on ``device`` (None: the
+    card): the key
     operands, the queries split into int32 halves and transposed to
     ``[Q, K]`` (repeated across the level blocks of a grouped batch, whose
     ``xs`` is the raw gate queries ``[G, Q]``), log_n and nu."""
     from ..models.dpf_chacha import _split_queries
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     xs_hi, xs_lo = _split_queries(xs, kb.log_n, dev)  # [Q, G or K]
     rep = kb.k // xs.shape[0]
     if rep > 1:  # level-grouped: the queries repeat across level blocks
@@ -468,9 +471,9 @@ def walk_args(kb, xs: np.ndarray, groups: int = 0, device="cpu") -> tuple:
 
 
 def eval_points_walk(kb, xs: np.ndarray, groups: int = 0, reduce: bool = False,
-                     packed: bool = False, device="cpu", walk_fn=walk) -> np.ndarray:
-    """Pointwise evaluation through one ``walk_fn`` launch
-    (``chacha_pallas.eval_points_walk``).  ``xs`` is uint64[K, Q], or the raw
+                     packed: bool = False, device=None, walk_fn=walk) -> np.ndarray:
+    """Pointwise evaluation through one ``walk_fn`` launch on ``device``
+    (None: the card; ``chacha_pallas.eval_points_walk``).  ``xs`` is uint64[K, Q], or the raw
     gate queries uint64[G, Q] of a level-grouped batch (``groups`` > 0),
     checked by the caller.  -> uint8[K, Q]; with ``reduce`` the level and
     group blocks XOR-fold on the device -> uint8[G, Q]; ``packed`` returns
@@ -478,6 +481,7 @@ def eval_points_walk(kb, xs: np.ndarray, groups: int = 0, reduce: bool = False,
     zero."""
     if reduce and not groups:
         raise ValueError("reduce requires a level-grouped batch")
+    device = resolve_device(device)
     k, q = kb.k, xs.shape[1]
     if not xs.size:  # no keys or no queries: nothing to launch
         return bitpack.empty_rows(xs.shape[0] if reduce else k, q, packed)
@@ -514,13 +518,13 @@ def walk_dcf(meta, seeds_t, scw_t, tcw_t, vcw_t, fcw_t, xs_lo, xs_hi, log_n: int
 walk_dcf.launches = 0
 
 
-def dcf_walk_operands(kb, device="cpu"):
+def dcf_walk_operands(kb, device=None):
     """(meta, seeds_t, scw_t, tcw_t, vcw_t, fvcw_t) for the DCF walk on
-    ``device``, memoized per key batch and device
+    ``device`` (None: the card), memoized per key batch and device
     (``chacha_pallas.dcf_walk_operands``): key_level = log_n and lowmask =
     511 for every key (no level grouping); vcw_t [max(nu, 1), K] (zero when
     nu = 0) and fvcw_t [16, K], key-minor."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev in kb._walk_ops:
         return kb._walk_ops[dev]
     k, nu = kb.k, kb.nu
@@ -532,22 +536,24 @@ def dcf_walk_operands(kb, device="cpu"):
     return ops
 
 
-def dcf_walk_args(kb, xs: np.ndarray, device="cpu") -> tuple:
-    """The arguments of :func:`walk_dcf` for xs uint64[K, Q] on ``device``:
-    the key operands, the queries split into int32 halves and transposed to
-    ``[Q, K]``, log_n and nu."""
+def dcf_walk_args(kb, xs: np.ndarray, device=None) -> tuple:
+    """The arguments of :func:`walk_dcf` for xs uint64[K, Q] on ``device``
+    (None: the card): the key operands, the queries split into int32 halves
+    and transposed to ``[Q, K]``, log_n and nu."""
     from ..models.dpf_chacha import _split_queries
 
-    xs_hi, xs_lo = _split_queries(xs, kb.log_n, torch.device(device))
-    return (*dcf_walk_operands(kb, device), xs_lo, xs_hi, kb.log_n, kb.nu)
+    dev = resolve_device(device)
+    xs_hi, xs_lo = _split_queries(xs, kb.log_n, dev)
+    return (*dcf_walk_operands(kb, dev), xs_lo, xs_hi, kb.log_n, kb.nu)
 
 
-def eval_points_walk_dcf(kb, xs: np.ndarray, packed: bool = False, device="cpu",
+def eval_points_walk_dcf(kb, xs: np.ndarray, packed: bool = False, device=None,
                          walk_fn=walk_dcf) -> np.ndarray:
-    """DCF comparison shares through one ``walk_fn`` launch
-    (``chacha_pallas.eval_points_walk_dcf``): xs uint64[K, Q], checked by
-    the caller -> uint8[K, Q]; ``packed`` returns uint32[K, ceil(Q/32)]
-    words packed on the device, tail bits zero."""
+    """DCF comparison shares through one ``walk_fn`` launch on ``device``
+    (None: the card; ``chacha_pallas.eval_points_walk_dcf``): xs
+    uint64[K, Q], checked by the caller -> uint8[K, Q]; ``packed`` returns
+    uint32[K, ceil(Q/32)] words packed on the device, tail bits zero."""
+    device = resolve_device(device)
     k, q = xs.shape
     if not xs.size:  # no keys or no queries: nothing to launch
         return bitpack.empty_rows(k, q, packed)

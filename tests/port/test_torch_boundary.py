@@ -53,6 +53,8 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
         "import dpf_tpu_torch.models.keys_gen, dpf_tpu_torch.models.hh_fold\n"
         "import dpf_tpu_torch.apps, dpf_tpu_torch.apps.heavy_hitters\n"
         "import dpf_tpu_torch.apps.hh_state, dpf_tpu_torch.apps.aggregation\n"
+        "import dpf_tpu_torch.core.knobs, dpf_tpu_torch.core.plans\n"
+        "import dpf_tpu_torch.apps.pir_store\n"
         "dpf_tpu_torch.fss\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
         "print(bad)\n"
@@ -513,3 +515,89 @@ def test_gen_tower_takes_only_cpu_or_cuda_tensors():
                                 for s in shapes), False)
     chacha_cuda.gen_tower(*(torch.zeros(s, dtype=torch.int32) for s in shapes), True)
     assert chacha_cuda.gen_tower.launches == before
+
+
+def test_port_source_scan_covers_the_plans():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {
+        "dpf_tpu_torch/core/knobs.py",
+        "dpf_tpu_torch/core/plans.py",
+        "dpf_tpu_torch/apps/pir_store.py",
+    } <= names
+
+
+def _run_routes():
+    from dpf_tpu_torch.apps import pir_store
+    from dpf_tpu_torch.core import keys, plans
+    from dpf_tpu_torch.models import dcf
+
+    rng = np.random.default_rng(0)
+    ka, _ = port.gen_batch([5, 9], 9, rng, device="cpu")
+    fa, _ = fast.gen_batch([5, 9], 10, rng, device="cpu")
+    da, _ = dcf.gen_lt_batch([5, 9], 10, rng, device="cpu")
+    ia, _ = dcf.gen_interval_batch([1, 2], [3, 4], 10, rng, device="cpu")
+    xs = np.array([[1, 5], [9, 200]], np.uint64)
+    db = pir_store.PirDB("b", np.zeros((300, 4), np.uint8))
+    roots = keys._draw_roots(2, rng)
+    sel = torch.zeros(16, dtype=torch.int64)
+    dk = port_dpf.DeviceKeys(ka, "cpu")
+    state = (dk.seed_planes.repeat(1, 32, 1), dk.t_words.repeat(32, 1))
+    rows = np.zeros((3, 2), np.uint32)
+    return {
+        "run_points": lambda **kw: plans.run_points("points", "fast", fa, xs, **kw),
+        "run_points_dcf": lambda **kw: plans.run_points("dcf_points", "fast", da, xs, **kw),
+        "run_interval": lambda **kw: plans.run_interval(ia, xs, **kw),
+        "run_evalfull": lambda **kw: plans.run_evalfull("compat", ka, **kw),
+        "run_hh_level": lambda **kw: plans.run_hh_level("compat", ka, xs, 1, **kw),
+        "run_hh_extend": lambda **kw: plans.run_hh_extend(
+            "compat", 9, 32, "tree", state,
+            (sel, dk.scw_planes[0], dk.tl_words[0], dk.tr_words[0]), q=32, **kw),
+        "run_hh_fold": lambda **kw: plans.run_hh_fold(rows, **kw),
+        "run_agg_fold": lambda **kw: plans.run_agg_fold("xor", None, rows, **kw),
+        "run_pir": lambda **kw: plans.run_pir(db, ka, **kw),
+        "run_gen": lambda **kw: plans.run_gen("compat", np.array([3, 4], np.uint64), 9,
+                                              *roots, **kw),
+        "warmup": lambda **kw: plans.warmup(
+            [{"route": "points", "profile": "compat", "log_n": 9, "k": 2}], **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["run_agg_fold", "run_evalfull", "run_gen", "run_hh_extend",
+                                  "run_hh_fold", "run_hh_level", "run_interval", "run_pir",
+                                  "run_points", "run_points_dcf", "warmup"])
+def test_plan_routes_without_cuda_raise_unless_cpu(monkeypatch, name):
+    # Every run_* means the card when it is given no device.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _run_routes()[name]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    assert call(device="cpu") is not None
+
+
+def _chacha_ops_calls():
+    from dpf_tpu_torch.models import dcf
+
+    rng = np.random.default_rng(0)
+    fa, _ = fast.gen_batch([5, 9], 10, rng, device="cpu")
+    da, _ = dcf.gen_lt_batch([5, 9], 10, rng, device="cpu")
+    xs = np.array([[1, 5], [9, 200]], np.uint64)
+    return {
+        "walk_operands": lambda **kw: chacha_cuda.walk_operands(fa, **kw),
+        "walk_args": lambda **kw: chacha_cuda.walk_args(fa, xs, **kw),
+        "eval_points_walk": lambda **kw: chacha_cuda.eval_points_walk(fa, xs, **kw),
+        "dcf_walk_operands": lambda **kw: chacha_cuda.dcf_walk_operands(da, **kw),
+        "dcf_walk_args": lambda **kw: chacha_cuda.dcf_walk_args(da, xs, **kw),
+        "eval_points_walk_dcf": lambda **kw: chacha_cuda.eval_points_walk_dcf(da, xs, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["dcf_walk_args", "dcf_walk_operands", "eval_points_walk",
+                                  "eval_points_walk_dcf", "walk_args", "walk_operands"])
+def test_chacha_ops_without_cuda_raise_unless_cpu(monkeypatch, name):
+    # ROADMAP C.6: these ops-level entry points defaulted to the CPU; like
+    # every entry point they now mean the card unless given device="cpu".
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _chacha_ops_calls()[name]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    assert call(device="cpu") is not None

@@ -146,7 +146,7 @@ def jax_walk34():
 
 def test_walk_dcf_plain_matches_pallas_kernel(jax_walk34):
     ka, _, _, xs, want = jax_walk34
-    args = chacha_cuda.dcf_walk_args(_to_port(ka), xs)
+    args = chacha_cuda.dcf_walk_args(_to_port(ka), xs, device="cpu")
     before = chacha_cuda.walk_dcf.launches
     got = chacha_cuda.walk_dcf(*args)  # CPU tensors: the plain version, no launch
     assert chacha_cuda.walk_dcf.launches == before
@@ -155,7 +155,7 @@ def test_walk_dcf_plain_matches_pallas_kernel(jax_walk34):
 
 def test_dcf_walk_operands_match_jax(jax_walk34):
     ka = jax_walk34[0]
-    for got, want in zip(chacha_cuda.dcf_walk_operands(_to_port(ka)),
+    for got, want in zip(chacha_cuda.dcf_walk_operands(_to_port(ka), device="cpu"),
                          chacha_pallas.dcf_walk_operands(ka)):
         np.testing.assert_array_equal(from_carrier(got), np.asarray(want))
 
@@ -238,7 +238,7 @@ def test_eval_interval_points_takes_lt_eval(jax_interval):
 
     def lt_eval(kb, q, packed=False):
         calls.append((kb.k, q.shape, packed))
-        return chacha_cuda.eval_points_walk_dcf(kb, q, packed=packed,
+        return chacha_cuda.eval_points_walk_dcf(kb, q, packed=packed, device="cpu",
                                                 walk_fn=chacha_cuda.walk_dcf_plain)
 
     got = dcf.eval_interval_points(_port_triple(ia), xs, lt_eval=lt_eval)

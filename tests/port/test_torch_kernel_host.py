@@ -766,7 +766,7 @@ def test_chacha_walk_dcf_lane_matches_dcf_oracle(chacha_lib, log_n):
     xs[:, 1] = np.maximum(alphas, np.uint64(1)) - np.uint64(1)
     shares = []
     for kb in dcf.gen_lt_batch(alphas, log_n, rng, device="cpu"):
-        *ops, xs_hi, log_n_, nu = chacha_cuda.dcf_walk_args(kb, xs)
+        *ops, xs_hi, log_n_, nu = chacha_cuda.dcf_walk_args(kb, xs, device="cpu")
         ops = [from_carrier(a) for a in ops + [ops[-1] if xs_hi is None else xs_hi]]
         out = np.zeros((Q, K), np.uint32)
         chacha_lib.host_chacha_walk_dcf(*(_p(a) for a in ops), _p(out), Q, K, log_n_, nu)

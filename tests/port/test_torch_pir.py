@@ -117,10 +117,14 @@ def test_server_arithmetic_matches_reference():
 
 
 def test_module_constants_are_the_reference_knob_defaults():
+    # The module constants became the port's knobs (core/knobs.py), with the
+    # reference's defaults.
     from dpf_tpu.core import knobs
+    from dpf_tpu_torch.core import knobs as port_knobs
 
-    for name in ("DPF_TPU_PIR_CHUNK_ROWS", "DPF_TPU_PIR_DB_CHUNK_BYTES"):
-        assert getattr(pir, name) == int(knobs.knob(name).default)
+    for name in ("PIR_CHUNK_ROWS", "PIR_DB_CHUNK_BYTES"):
+        assert (port_knobs.knob(f"DPF_CUDA_{name}").default
+                == knobs.knob(f"DPF_TPU_{name}").default)
 
 
 @pytest.mark.parametrize("K", [1, 7, 32, 33])

@@ -153,7 +153,7 @@ def test_level_grouped_matches_pallas_walk(jax_grouped):
 def test_walk_operands_match_jax(jax_grouped, groups):
     kb = jax_grouped[0]
     want = chacha_pallas.walk_operands(kb, groups)
-    got = chacha_cuda.walk_operands(_to_port(kb), groups)
+    got = chacha_cuda.walk_operands(_to_port(kb), groups, device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(from_carrier(g), np.asarray(w))
 
@@ -201,7 +201,8 @@ def test_fast_eval_points_rejects_bad_queries():
     with pytest.raises(ValueError, match=r"\[K, Q\]"):
         fast.eval_points_batch(kb, np.zeros((3, 2), np.uint64), device="cpu")
     with pytest.raises(ValueError, match="reduce"):
-        chacha_cuda.eval_points_walk(kb, np.zeros((2, 2), np.uint64), reduce=True)
+        chacha_cuda.eval_points_walk(kb, np.zeros((2, 2), np.uint64), reduce=True,
+                                     device="cpu")
 
 
 # ---------------------------------------------------------------------------
