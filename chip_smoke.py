@@ -2609,12 +2609,894 @@ def eager_routes_phase(dev, card: str, k: int = 1000, pir_rows: int = 1 << 20) -
         f"{plans.capture_count()} graphs held")
 
 
+# ---------------------------------------------------------------------------
+# The sidecar on the card (phase 41)
+# ---------------------------------------------------------------------------
+
+# Phase 41's shapes: BASELINE configs 2-5 at full width (``full``), and a tiny
+# set that drives the same code on the CPU (``dry``: the CPU test
+# tests/port/test_torch_server.py runs it).  The sidecar runs with the plans'
+# K floor pinned to ``kfloor``, so a coalesced batch of 8..256 keys lands on
+# one warmed bucket, and every bucket its traffic reaches is warmed first.
+SIDECAR_SHAPES = {
+    "full": dict(n2=20, k2=1024, n3=30, k3=256, q3=4096, n5=32, k5=4096, q5=1024, ki5=2048,
+                 hh_g=16384, hh_n=16, hh_level=11, agg_rows=1 << 20, agg_words=64,
+                 pir_rows=1 << 24, pir_row_bytes=32, pir_k=1024, kfloor=256,
+                 burst_threads=32, burst_keys3=8, burst_keys5=128, gate_k=2048,
+                 lat_clients=16, lat_n1=200, lat_n16=112, lat_n1_big=10, lat_n16_big=16,
+                 lat_cap_s=10.0, direct_reps=20, cooldown_ms=1000, pause_s=0.3),
+    "dry": dict(n2=9, k2=4, n3=10, k3=8, q3=32, n5=10, k5=16, q5=32, ki5=8,
+                hh_g=24, hh_n=7, hh_level=4, agg_rows=100, agg_words=3,
+                pir_rows=300, pir_row_bytes=8, pir_k=6, kfloor=8,
+                burst_threads=4, burst_keys3=2, burst_keys5=4, gate_k=32,
+                lat_clients=2, lat_n1=1, lat_n16=2, lat_n1_big=1, lat_n16_big=2,
+                lat_cap_s=5.0, direct_reps=1, cooldown_ms=200, pause_s=0.05),
+}
+# The kernels a traced served request of each route must show (the table
+# of PERF.md section 6; graph replays and eager routes alike).
+SIDECAR_ROUTE_KERNELS = {
+    "evalfull compat": ("prg_bm_kernel", "leaf_words_bm_kernel"),
+    "evalfull fast": ("fused_levels_kernel", "expand_tail_kernel"),
+    "points compat": ("walk_bm_kernel",),
+    "points fast": ("walk_kernel",),
+    "dcf_points": ("walk_dcf_kernel",),
+    "dcf_interval": ("walk_dcf_kernel",),
+    "gen compat": ("prg_canon_kernel",),
+    "gen fast": ("gen_tower_cc_kernel",),
+    "dcf_gen": ("gen_tower_cc_kernel",),
+    "eval compat": ("walk_bm_kernel",),
+    "eval fast": ("walk_kernel",),
+    "hh_eval compat": ("walk_bm_kernel",),
+    "hh_eval fast": ("walk_kernel",),
+    "hh_session compat": ("prg_canon_kernel",),
+    "hh_session fast": ("fused_levels_kernel",),
+    "pir compat": ("prg_bm_kernel", "leaf_words_bm_kernel"),
+    "pir fast": ("fused_levels_kernel", "expand_tail_kernel"),
+}
+SIDECAR_ENV = {"DPF_CUDA_RETRY_BACKOFF_MS": "5", "DPF_CUDA_FAULTS_ALLOW": "1"}
+SIDECAR_HH_THRESHOLD = 160
+SIDECAR_TRACE_SPANS = ("admission", "queue_wait", "coalesce", "dispatch", "plan_lookup",
+                       "compute", "d2h", "reply")
+
+
+class _Http:
+    """One keep-alive HTTP/1.1 connection to the sidecar."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def post(self, path: str, body=b"", headers=None) -> tuple[int, bytes, dict]:
+        self.conn.request("POST", path, body=body, headers=headers or {})
+        r = self.conn.getresponse()
+        data = r.read()
+        return r.status, data, dict(r.getheaders())
+
+    def get(self, path: str) -> tuple[int, bytes]:
+        self.conn.request("GET", path)
+        r = self.conn.getresponse()
+        return r.status, r.read()
+
+    def ok(self, path: str, body=b"", headers=None) -> bytes:
+        status, data, _ = self.post(path, body, headers)
+        if status != 200:
+            raise AssertionError(f"sidecar {path}: {status} {data[:200]!r}")
+        return data
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _qs(**params) -> str:
+    return "&".join(f"{k}={v}" for k, v in params.items())
+
+
+def _u8(x: np.ndarray) -> bytes:
+    return np.ascontiguousarray(x).astype("<u8").tobytes()
+
+
+def _same(what: str, got: bytes, want) -> None:
+    want = want if isinstance(want, bytes) else np.ascontiguousarray(want).tobytes()
+    if got != want:
+        raise AssertionError(f"sidecar {what}: reply != direct call ({len(got)} / {len(want)} B)")
+
+
+def _rec_bits(a: bytes, b: bytes, k: int, q: int) -> np.ndarray:
+    """Both parties' bits-format replies -> the reconstructed uint8[k, q]."""
+    return (np.frombuffer(a, np.uint8) ^ np.frombuffer(b, np.uint8)).reshape(k, q)
+
+
+def _rec_packed(a: bytes, b: bytes, k: int, q: int) -> np.ndarray:
+    """Both parties' packed replies -> the reconstructed uint8[k, q] bits."""
+    x = (np.frombuffer(a, np.uint8) ^ np.frombuffer(b, np.uint8)).reshape(k, -1)
+    return np.unpackbits(x, axis=1, bitorder="little")[:, :q]
+
+
+def _closed_loop(port: int, clients: int, n: int, cap_s: float, path: str,
+                 body: bytes) -> list[float]:
+    """``clients`` threads, each sending requests back to back on its own
+    connection until ``n`` have been sent in all, or ``cap_s`` seconds have
+    passed and each client has sent one -> every request's latency in ms."""
+    import threading
+
+    lats, errors = [], []
+    lock = threading.Lock()
+    sent = [0]
+    t_end = time.perf_counter() + cap_s
+
+    def run():
+        c = _Http(port)
+        mine = 0
+        try:
+            while True:
+                with lock:
+                    if sent[0] >= n or (mine and time.perf_counter() > t_end):
+                        break
+                    sent[0] += 1
+                mine += 1
+                t0 = time.perf_counter()
+                c.ok(path, body)
+                dt = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    lats.append(dt)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=run) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"closed loop on {path}: {errors[0]!r}")
+    return lats
+
+
+def _pct(lats: list[float], p: float) -> float:
+    s = sorted(lats)
+    return s[min(len(s) - 1, int(round(p / 100 * (len(s) - 1))))]
+
+
+# Fewer samples than this give no 99th percentile: their tail is reported
+# as the largest of the n.
+TAIL_MIN_N = 100
+
+
+def _tail(lats: list[float]) -> str:
+    if len(lats) >= TAIL_MIN_N:
+        return f"p99 {_pct(lats, 99):.3f} ms"
+    return f"max {max(lats):.3f} ms (too few for a p99)"
+
+
+# The handler's phase timers of /v1/stats that do not overlap on one
+# request: a route runs ``dispatch`` (the evalfull routes, their streamed
+# blocks) or ``queue_wait`` + ``compute`` (the batched routes).
+SIDECAR_PHASES = ("pack", "dispatch", "d2h", "queue_wait", "compute", "reply")
+
+
+def _phase_split(before: dict, after: dict, n: int, lat_ms: float) -> str:
+    """Each phase's mean ms a request between two /v1/stats snapshots, and
+    what the handler's timers do not cover (the HTTP front's parsing and
+    body read, the client's send and receive)."""
+    got = {p: (after.get(p, {}).get("seconds", 0.0) - before.get(p, {}).get("seconds", 0.0))
+           * 1e3 / n for p in SIDECAR_PHASES}
+    got = {p: v for p, v in got.items() if v > 0}
+    parts = ", ".join(f"{p} {v:.3f}" for p, v in got.items())
+    return f"{parts}, outside the handler's timers {lat_ms - sum(got.values()):.3f} ms"
+
+
+def sidecar_phase(dev, card: str, seed: int, size: str = "full") -> None:
+    """Phase 41: the sidecar on the card, through its HTTP front
+    (``dpf_tpu_torch.server.serve(port=0)``), at BASELINE configs 2-5.
+
+    Cold ``/readyz`` is 503 ``cold``; ``/v1/warmup`` captures the graph
+    plans of every bucket the phase's traffic reaches, then ``/readyz`` is
+    200.  Every route of ``docs/CONTRACT.json`` (and ``/v1/evalfull?stream=1``)
+    runs once at full width, its reply byte-identical to the port's direct
+    call on the same key bytes and both parties' replies reconstructing;
+    ``capture_count()`` does not move from the warmup through a coalescing
+    burst of 8-key pointwise requests (config 3) and of 128-gate DCF
+    requests (config 5), whose replies each equal their direct calls.  A
+    request in a new bucket captures while 8 threads replay and run eager
+    routes, with no failed request.  A traced served request of each route
+    shows its kernels.  A transient dispatch fault trips the breaker, whose
+    probe replays the recent graphs, and it recovers.  ``/v1/metrics``
+    parses strictly, its counters equal ``/v1/stats``, and it names the 44
+    metrics of the contract; a trace's span tree runs from admission to the
+    reply.  Then the served latencies, the sidecar's cost over the direct
+    call, keys per dispatch and the card's idle share in a burst."""
+    import os
+    import threading
+
+    import dpf_tpu_torch as P
+    from dpf_tpu_torch import fast, server
+    from dpf_tpu_torch.apps import hh_state, pir_store
+    from dpf_tpu_torch.core import bitpack, plans, spec
+    from dpf_tpu_torch.core import chacha_np as cc
+    from dpf_tpu_torch.core.keys import KeyBatch
+    from dpf_tpu_torch.core.keys_chacha import KeyBatchFast
+    from dpf_tpu_torch.models import dcf
+    from dpf_tpu_torch.models import dpf as mdpf
+    from dpf_tpu_torch.models import dpf_chacha as mdc
+    from dpf_tpu_torch.obs import promtext
+    from dpf_tpu_torch.serving import faults, handlers
+
+    S = SIDECAR_SHAPES[size]
+    t_lap = [time.perf_counter()]
+
+    def step_log(msg: str) -> None:
+        """``log`` with the seconds since the previous step's line."""
+        now = time.perf_counter()
+        log(f"{msg} [{now - t_lap[0]:.1f} s]")
+        t_lap[0] = now
+
+    on_card = dev.type == "cuda"
+    dname = dev.type
+    t_phase = time.perf_counter()
+    env = {**SIDECAR_ENV, "DPF_CUDA_PLAN_KFLOOR": str(S["kfloor"]),
+           "DPF_CUDA_BREAKER_COOLDOWN_MS": str(S["cooldown_ms"])}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    plans.cache().clear()
+    pir_store.reset()
+    handlers.reset_serving_state()
+    srv = server.serve(port=0, device=None if on_card else "cpu")
+    port = srv.server_address[1]
+    c = _Http(port)
+    rng = np.random.default_rng(seed + 41)
+    profiles = {"compat": (P.gen_batch, KeyBatch, spec.key_len, P.eval_full_batch,
+                           lambda kb, xs: mdpf.eval_points(kb, xs, packed=True, device=dev)),
+                "fast": (fast.gen_batch, KeyBatchFast, cc.key_len, fast.eval_full_batch,
+                         lambda kb, xs: mdc.eval_points(kb, xs, packed=True, device=dev))}
+
+    def deal(profile, alphas, log_n):
+        return profiles[profile][0](alphas, log_n, rng, device=dev)
+
+    try:
+        # 1. Start: not ready before the warmup.
+        status, body = c.get("/readyz")
+        if status != 503 or json.loads(body)["code"] != "cold":
+            raise AssertionError(f"cold /readyz: {status} {body!r}")
+        step_log(f"[sidecar] serving on 127.0.0.1:{port} ({dname}); cold /readyz: 503 cold")
+
+        # 2. The warmup of every bucket the traffic below reaches.
+        kf = S["kfloor"]
+        warm = []
+        for prof in ("compat", "fast"):
+            warm += [{"route": "evalfull", "profile": prof, "log_n": S["n2"], "k": k}
+                     for k in sorted({kf, S["k2"]})]
+        # Config 3: compat up to the batcher's 1024-key cap (16 clients' 256-key
+        # requests coalesce), fast at the bucket its 64-key replays share.
+        k = kf
+        while k <= max(S["k3"], 1024 if size == "full" else 4 * S["k3"]):
+            warm.append({"route": "points", "profile": "compat", "log_n": S["n3"], "k": k,
+                         "q": S["q3"]})
+            k *= 2
+        warm.append({"route": "points", "profile": "fast", "log_n": S["n3"], "k": S["k3"],
+                     "q": S["q3"]})
+        k = kf
+        while k <= S["k5"]:
+            warm.append({"route": "dcf_points", "profile": "fast", "log_n": S["n5"], "k": k,
+                         "q": S["q5"]})
+            k *= 2
+        t0 = time.perf_counter()
+        rep = json.loads(c.ok("/v1/warmup", json.dumps({"shapes": warm}).encode()))
+        warm_s = time.perf_counter() - t0
+        status, body = c.get("/readyz")
+        if status != 200 or body != b"ready":
+            raise AssertionError(f"/readyz after the warmup: {status} {body!r}")
+        captured = plans.capture_count()
+        want_graphs = len(warm) if on_card else 0
+        if rep["trace_cache_entries"] != captured or captured != want_graphs:
+            raise AssertionError(f"warmup: {captured} graphs, reply {rep['trace_cache_entries']}, "
+                                 f"expected {want_graphs}")
+        step_log(f"[sidecar] warmup of {len(warm)} shapes in {warm_s:.1f} s: capture_count() "
+            f"{captured}; /readyz 200 ready")
+
+        # 3. Every route once, at full width.
+        zero_launches()
+        route_s = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            route_s[name] = time.perf_counter() - t0
+            return out
+
+        keys2, body3 = {}, {}
+        for prof in ("compat", "fast"):
+            gen, cls, klen, eval_full, eval_points = profiles[prof]
+            n2, k2 = S["n2"], S["k2"]
+            alphas = rng.integers(0, 1 << n2, size=k2, dtype=np.uint64)
+            ka, kb = deal(prof, alphas, n2)
+            keys2[prof] = (alphas, ka, kb)
+            blob_a, blob_b = b"".join(ka.to_bytes()), b"".join(kb.to_bytes())
+            qs = _qs(log_n=n2, k=k2, profile=prof)
+            ra = timed(f"evalfull_batch {prof}", lambda: c.ok(f"/v1/evalfull_batch?{qs}", blob_a))
+            rb = c.ok(f"/v1/evalfull_batch?{qs}", blob_b)
+            out_a = eval_full(ka, device=dev)
+            _same(f"evalfull_batch {prof}", ra, out_a)
+            _same(f"evalfull_batch {prof} (b)", rb, eval_full(kb, device=dev))
+            rows = out_a.shape[1]
+            assert_one_bit_at_alphas(np.frombuffer(ra, np.uint8).reshape(k2, rows)
+                                     ^ np.frombuffer(rb, np.uint8).reshape(k2, rows), alphas)
+            one_a, one_b = ka.to_bytes()[0], kb.to_bytes()[0]
+            for stream in ("0", "1"):
+                qs1 = _qs(log_n=n2, profile=prof, stream=stream)
+                ra1 = timed(f"evalfull {prof} stream={stream}",
+                            lambda: c.ok(f"/v1/evalfull?{qs1}", one_a))
+                rb1 = c.ok(f"/v1/evalfull?{qs1}", one_b)
+                _same(f"evalfull {prof} stream={stream}", ra1, out_a[0])
+                assert_one_bit_at_alphas((np.frombuffer(ra1, np.uint8)
+                                          ^ np.frombuffer(rb1, np.uint8))[None], alphas[:1])
+            x = int(alphas[0])
+            bit = c.ok(f"/v1/eval?{_qs(log_n=n2, x=x, profile=prof)}", one_a)
+            bit_b = c.ok(f"/v1/eval?{_qs(log_n=n2, x=x, profile=prof)}", one_b)
+            # The served point runs the walk on the card; the host spec holds it.
+            api = P if prof == "compat" else fast
+            if bit != bytes([api.Eval(one_a, x, n2, backend="cpu")]) or bit[0] ^ bit_b[0] != 1:
+                raise AssertionError(f"/v1/eval {prof}: {bit!r} {bit_b!r}")
+            g = c.ok(f"/v1/gen?{_qs(log_n=n2, alpha=x, profile=prof)}")
+            gk = cls.from_bytes([g[: klen(n2)], g[klen(n2):]], n2)
+            go = eval_full(gk, device=dev)
+            assert_one_bit_at_alphas((go[0] ^ go[1])[None], alphas[:1])
+            # Config 3.
+            n3, k3, q3 = S["n3"], S["k3"], S["q3"]
+            al3 = rng.integers(1, 1 << n3, size=k3, dtype=np.uint64)
+            pa, pb = deal(prof, al3, n3)
+            xs = rng.integers(0, 1 << n3, size=(k3, q3), dtype=np.uint64)
+            xs[:, 0], xs[:, 1] = al3, al3 - np.uint64(1)
+            words = eval_points(pa, xs)
+            body3[prof] = (b"".join(pa.to_bytes()) + _u8(xs), b"".join(pb.to_bytes()) + _u8(xs))
+            for fmt in ("packed", "bits"):
+                qs3 = _qs(log_n=n3, k=k3, q=q3, profile=prof, format=fmt)
+                r3a = timed(f"points {prof} {fmt}", lambda: c.ok(
+                    f"/v1/eval_points_batch?{qs3}", body3[prof][0]))
+                r3b = c.ok(f"/v1/eval_points_batch?{qs3}", body3[prof][1])
+                want = (bitpack.words_to_wire_rows(words, q3) if fmt == "packed"
+                        else bitpack.unpack_bits(words, q3))
+                _same(f"points {prof} {fmt}", r3a, want)
+                rec = (_rec_packed if fmt == "packed" else _rec_bits)(r3a, r3b, k3, q3)
+                if not (rec[:, 0].all() and not rec[:, 1].any()
+                        and rec.sum() == (xs == al3[:, None]).sum()):
+                    raise AssertionError(f"points {prof} {fmt}: reconstruction")
+        step_log(f"[sidecar] evalfull_batch (n={S['n2']}, K={S['k2']}), evalfull (stream 0 and 1), "
+            f"eval, gen, eval_points_batch (n={S['n3']}, {S['k3']} x {S['q3']}, packed and "
+            f"bits), both profiles: replies == direct calls, both parties reconstruct")
+
+        # Config 5: DCF comparison and interval gates.
+        n5, k5, q5, ki5 = S["n5"], S["k5"], S["q5"], S["ki5"]
+        al5 = rng.integers(2, 1 << n5, size=k5, dtype=np.uint64)
+        g5 = timed("dcf_gen", lambda: c.ok(f"/v1/dcf_gen?{_qs(log_n=n5, k=k5)}", _u8(al5)))
+        kl5 = dcf.key_len(n5)
+        da = dcf.DcfKeyBatch.from_bytes([g5[i * kl5:(i + 1) * kl5] for i in range(k5)], n5)
+        db = dcf.DcfKeyBatch.from_bytes([g5[(k5 + i) * kl5:(k5 + i + 1) * kl5]
+                                         for i in range(k5)], n5)
+        xs5 = rng.integers(0, 1 << n5, size=(k5, q5), dtype=np.uint64)
+        xs5[:, 0], xs5[:, 1] = al5, al5 - np.uint64(1)
+        lt = (xs5 < al5[:, None]).astype(np.uint8)
+        w5 = fast.dcf_eval_lt_points(da, xs5, packed=True, device=dev)
+        qs5 = _qs(log_n=n5, k=k5, q=q5, format="packed")
+        r5a = timed("dcf_eval_points", lambda: c.ok(f"/v1/dcf_eval_points?{qs5}",
+                                                     g5[: k5 * kl5] + _u8(xs5)))
+        r5b = c.ok(f"/v1/dcf_eval_points?{qs5}", g5[k5 * kl5:] + _u8(xs5))
+        _same("dcf_eval_points", r5a, bitpack.words_to_wire_rows(w5, q5))
+        if not np.array_equal(_rec_packed(r5a, r5b, k5, q5), lt):
+            raise AssertionError("dcf_eval_points: reconstruction != 1{x < alpha}")
+        del db
+        lo = rng.integers(0, 1 << (n5 - 1), size=ki5, dtype=np.uint64)
+        hi = lo + rng.integers(0, 1 << (n5 - 2), size=ki5, dtype=np.uint64)
+        gi = timed("dcf_interval_gen", lambda: c.ok(f"/v1/dcf_interval_gen?{_qs(log_n=n5, k=ki5)}",
+                                                     _u8(lo) + _u8(hi)))
+        half = len(gi) // 2
+        xsi = rng.integers(0, 1 << n5, size=(ki5, q5), dtype=np.uint64)
+        xsi[:, 0], xsi[:, 1], xsi[:, 2] = lo, hi, hi + np.uint64(1)
+        inside = ((xsi >= lo[:, None]) & (xsi <= hi[:, None])).astype(np.uint8)
+
+        def triple(blob):
+            keys_at = lambda off: dcf.DcfKeyBatch.from_bytes(  # noqa: E731
+                [blob[off + i * kl5: off + (i + 1) * kl5] for i in range(ki5)], n5)
+            return keys_at(0), keys_at(ki5 * kl5), np.frombuffer(blob[2 * ki5 * kl5:], np.uint8)
+
+        wi = fast.dcf_eval_interval_points(triple(gi[:half]), xsi, packed=True, device=dev)
+        qsi = _qs(log_n=n5, k=ki5, q=q5, format="packed")
+        ria = timed("dcf_interval_eval", lambda: c.ok(f"/v1/dcf_interval_eval?{qsi}",
+                                                       gi[:half] + _u8(xsi)))
+        rib = c.ok(f"/v1/dcf_interval_eval?{qsi}", gi[half:] + _u8(xsi))
+        _same("dcf_interval_eval", ria, bitpack.words_to_wire_rows(wi, q5))
+        if not np.array_equal(_rec_packed(ria, rib, ki5, q5), inside):
+            raise AssertionError("dcf_interval_eval: reconstruction != 1{lo <= x <= hi}")
+        step_log(f"[sidecar] dcf_gen + dcf_eval_points (n={n5}, {k5} x {q5}) and dcf_interval_gen + "
+            f"dcf_interval_eval ({ki5} x {q5}): replies == direct calls, reconstruct exactly")
+
+        # Heavy hitters: the dealer's blob feeds the round routes.
+        G, hn, lvl = S["hh_g"], S["hh_n"], S["hh_level"]
+        vals = rng.integers(0, 1 << hn, size=G, dtype=np.uint64)
+        planted = (5, 1234 % (1 << hn), (1 << hn) - 7)
+        per = max(G // 50, 2)
+        for i, v in enumerate(planted):
+            vals[i * per:(i + 1) * per] = v
+        thr = min(SIDECAR_HH_THRESHOLD, per // 2)
+        hh_blobs = {}
+        for prof in ("compat", "fast"):
+            klen = profiles[prof][2]
+            cls = profiles[prof][1]
+            kl = klen(hn)
+            gh = timed(f"hh_gen {prof}", lambda: c.ok(
+                f"/v1/hh/gen?{_qs(log_n=hn, k=G, profile=prof)}", _u8(vals)))
+            half = len(gh) // 2
+            hh_blobs[prof] = gh[:half]
+
+            def level_blob(blob, level):
+                a = np.frombuffer(blob, np.uint8).reshape(G, hn, kl)
+                return np.ascontiguousarray(a[:, level]).tobytes()
+
+            # Stateless round at ``lvl``: every (lvl+1)-bit prefix a candidate.
+            nc = 1 << (lvl + 1)
+            cands = np.arange(nc, dtype=np.uint64) << np.uint64(hn - lvl - 1)
+            rows = {}
+            for party, blob in (("a", gh[:half]), ("b", gh[half:])):
+                lb = level_blob(blob, lvl)
+                qsh = _qs(log_n=hn, k=G, q=nc, level=lvl, profile=prof, format="packed")
+                rows[party] = timed(f"hh_eval {prof}", lambda: c.ok(
+                    f"/v1/hh/eval?{qsh}", lb + _u8(cands)))
+                kbl = cls.from_bytes([lb[i * kl:(i + 1) * kl] for i in range(G)], hn)
+                want = plans.run_hh_level(prof, kbl, np.broadcast_to(cands[None], (G, nc)), lvl,
+                                          device=dev)
+                _same(f"hh_eval {prof} ({party})", rows[party],
+                      bitpack.words_to_wire_rows(want, nc))
+            counts = _rec_packed(rows["a"], rows["b"], G, nc).sum(axis=0)
+            if not np.array_equal(counts, np.bincount((vals >> np.uint64(hn - lvl - 1))
+                                                      .astype(np.int64), minlength=nc)):
+                raise AssertionError(f"hh_eval {prof}: counts != the clients' prefixes")
+            # An incremental descent (session) over the level-(n-1) keys.
+            last = {p: level_blob(b, hn - 1) for p, b in (("a", gh[:half]), ("b", gh[half:]))}
+            frontier = {p: hh_state.FrontierState(
+                prof, cls.from_bytes([last[p][i * kl:(i + 1) * kl] for i in range(G)], hn),
+                device=dev) for p in last}
+            surv = np.zeros(1, np.uint64)
+            depth = 0
+            found = None
+            for d in sorted({min(hn, x) for x in (4, 8, 12, hn)}):
+                # Every depth-d extension of the survivors.
+                ext = d - depth
+                cand = ((surv[:, None] << np.uint64(ext))
+                        | np.arange(1 << ext, dtype=np.uint64)[None]).reshape(-1)
+                raw = cand << np.uint64(hn - d)
+                qsd = _qs(log_n=hn, k=G, q=cand.size, level=d - 1, profile=prof,
+                          session=f"s41-{prof}", format="packed")
+                got = {}
+                for p in ("a", "b"):
+                    got[p] = timed(f"hh_session {prof}", lambda: c.ok(
+                        f"/v1/hh/eval?{qsd.replace('s41', 's41' + p)}", last[p] + _u8(raw)))
+                    _same(f"hh_session {prof} depth {d} ({p})", got[p],
+                          bitpack.words_to_wire_rows(frontier[p].advance(cand, d), cand.size))
+                cnt = _rec_packed(got["a"], got["b"], G, cand.size).sum(axis=0)
+                truth = np.array([(vals >> np.uint64(hn - d) == x).sum() for x in cand])
+                if not np.array_equal(cnt, truth):
+                    raise AssertionError(f"hh_session {prof} depth {d}: counts")
+                surv, depth = cand[cnt >= thr], d
+                found = {int(v): int(n) for v, n in zip(cand[cnt >= thr], cnt[cnt >= thr])}
+            want_found = {int(v): int((vals == v).sum()) for v in np.unique(vals)
+                          if (vals == v).sum() >= thr}
+            if found != want_found:
+                raise AssertionError(f"hh_session {prof}: found {found}, want {want_found}")
+        step_log(f"[sidecar] hh/gen ({G} clients x {hn} levels) feeding hh/eval stateless (level "
+            f"{lvl}, {1 << (lvl + 1)} candidates) and a session descent, both profiles: replies "
+            f"== direct calls, exact counts, the planted values found")
+
+        # Aggregation: the streamed upload.
+        R, W = S["agg_rows"], S["agg_words"]
+        arows = rng.integers(0, 1 << 32, size=(R, W), dtype=np.uint64).astype(np.uint32)
+        for op, want in (("xor", np.bitwise_xor.reduce(arows, axis=0)),
+                         ("add", (arows.astype(np.uint64).sum(axis=0) & 0xFFFFFFFF)
+                          .astype(np.uint32))):
+            ra = timed(f"agg {op}", lambda: c.ok(f"/v1/agg/submit?{_qs(op=op, k=R, words=W)}",
+                                                 arows.astype("<u4").tobytes()))
+            _same(f"agg/submit {op}", ra, want.astype("<u4"))
+        del arows
+        step_log(f"[sidecar] agg/submit xor and add over {R} x {W}-word rows == numpy")
+
+        # PIR, config 4: the database from --seed, both profiles.
+        nr, rbytes, pk = S["pir_rows"], S["pir_row_bytes"], S["pir_k"]
+        db_rows = np.random.default_rng(seed).integers(0, 256, size=(nr, rbytes), dtype=np.uint8)
+        for prof in ("compat", "fast"):
+            name = f"c4-{prof}"
+            info = json.loads(timed(f"pir_db {prof}", lambda: c.ok(
+                f"/v1/pir/db?{_qs(name=name, rows=nr, row_bytes=rbytes, profile=prof)}",
+                db_rows.tobytes())))
+            entry = pir_store.registry().get(name)
+            idx = rng.integers(0, nr, size=pk, dtype=np.uint64)
+            qa, qb = deal(prof, idx, entry.log_n)
+            ans = {}
+            for p, kbq in (("a", qa), ("b", qb)):
+                ans[p] = timed(f"pir_query {prof}", lambda: c.ok(
+                    f"/v1/pir/query?{_qs(db=name, k=pk)}", b"".join(kbq.to_bytes())))
+            _same(f"pir/query {prof}", ans["a"], plans.run_pir(entry, qa, device=dev))
+            rec = (np.frombuffer(ans["a"], np.uint8) ^ np.frombuffer(ans["b"], np.uint8))
+            if not np.array_equal(rec.reshape(pk, rbytes), db_rows[idx.astype(np.int64)]):
+                raise AssertionError(f"pir {prof}: reconstruction != the rows")
+            step_log(f"[sidecar] pir/db {info} and pir/query ({pk} queries, {prof}): answer == "
+                f"direct plan call, both servers' answers XOR to the selected rows")
+        del db_rows
+        launches = read_launches()
+        step_log(f"[sidecar] every route once: launches of eager routes and first uses "
+            f"{ {k: n for k, n in launches.items() if n} }; seconds a request "
+            + ", ".join(f"{k} {v:.3f}" for k, v in route_s.items()))
+
+        # 4. Coalescing: concurrent 8-key pointwise requests, then 128-gate DCF ones.
+        if plans.capture_count() != captured:
+            raise AssertionError(f"capture_count() moved: {captured} -> {plans.capture_count()}")
+        st = handlers.serving_state()
+        for what, nk, q, n, prof in (("points", S["burst_keys3"], S["q3"], S["n3"], "compat"),
+                                     ("dcf", S["burst_keys5"], S["q5"], S["n5"], "fast")):
+            reqs = []
+            for _ in range(S["burst_threads"]):
+                al = rng.integers(1, 1 << n, size=nk, dtype=np.uint64)
+                xq = rng.integers(0, 1 << n, size=(nk, q), dtype=np.uint64)
+                if what == "points":
+                    kx, _ = deal(prof, al, n)
+                    w = profiles[prof][4](kx, xq)
+                    path = f"/v1/eval_points_batch?{_qs(log_n=n, k=nk, q=q, format='packed')}"
+                else:
+                    kx, _ = fast.dcf_gen_lt_batch(al, n, rng, device=dev)
+                    w = fast.dcf_eval_lt_points(kx, xq, packed=True, device=dev)
+                    path = f"/v1/dcf_eval_points?{_qs(log_n=n, k=nk, q=q, format='packed')}"
+                reqs.append((path, b"".join(kx.to_bytes()) + _u8(xq),
+                             bitpack.words_to_wire_rows(w, q).tobytes()))
+            before = st.batcher.stats_dict()
+            barrier = threading.Barrier(len(reqs))
+            errors = []
+
+            def send(r):
+                cc_ = _Http(port)
+                try:
+                    barrier.wait()
+                    got = cc_.ok(r[0], r[1])
+                    if got != r[2]:
+                        errors.append("reply != direct call")
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+                finally:
+                    cc_.close()
+
+            threads = [threading.Thread(target=send, args=(r,)) for r in reqs]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            after = st.batcher.stats_dict()
+            nd = after["dispatches"] - before["dispatches"]
+            nkd = after["keys_dispatched"] - before["keys_dispatched"]
+            if errors:
+                raise AssertionError(f"coalescing {what}: {errors[:3]}")
+            if nd >= len(reqs) or nkd / max(nd, 1) <= nk:
+                raise AssertionError(f"coalescing {what}: {len(reqs)} requests in {nd} dispatches")
+            step_log(f"[sidecar] coalescing {what}: {len(reqs)} concurrent {nk}-key requests in {nd} "
+                f"dispatches, {nkd / nd:.1f} keys a dispatch; every reply == its direct call")
+        if plans.capture_count() != captured:
+            raise AssertionError(f"capture_count() moved: {captured} -> {plans.capture_count()}")
+        step_log(f"[sidecar] capture_count() unmoved since the warmup: {captured}")
+
+        # 5. The capture gate: a new bucket captures under concurrent traffic.
+        n3, q3 = S["n3"], S["q3"]
+        gk = S["gate_k"]
+        alg = rng.integers(1, 1 << n3, size=gk, dtype=np.uint64)
+        kgate, _ = deal("compat", alg, n3)
+        xg = rng.integers(0, 1 << n3, size=(gk, q3), dtype=np.uint64)
+        want_gate = bitpack.words_to_wire_rows(profiles["compat"][4](kgate, xg), q3).tobytes()
+        # The replaying threads send a quarter of the warmed bucket each, so
+        # that however they coalesce their batches stay inside it.
+        kr = max(S["k3"] // 4, 1)
+        alr = rng.integers(1, 1 << n3, size=kr, dtype=np.uint64)
+        krep, _ = deal("fast", alr, n3)
+        xr = rng.integers(0, 1 << n3, size=(kr, q3), dtype=np.uint64)
+        want_rep = bitpack.words_to_wire_rows(profiles["fast"][4](krep, xr), q3).tobytes()
+        path_rep = f"/v1/eval_points_batch?{_qs(log_n=n3, k=kr, q=q3, profile='fast', format='packed')}"
+        body_rep = b"".join(krep.to_bytes()) + _u8(xr)
+        arows = rng.integers(0, 1 << 32, size=(1024, 64), dtype=np.uint64).astype(np.uint32)
+        want_agg = np.bitwise_xor.reduce(arows, axis=0).astype("<u4").tobytes()
+        stop = threading.Event()
+        done = Counter()
+        errors = []
+
+        def background(kind):
+            cc_ = _Http(port)
+            try:
+                while not stop.is_set():
+                    if kind == "replay":
+                        ok = cc_.ok(path_rep, body_rep) == want_rep
+                    elif kind == "gen":
+                        ok = len(cc_.ok(f"/v1/gen?{_qs(log_n=S['n2'], alpha=3, profile='fast')}")) \
+                            == 2 * cc.key_len(S["n2"])
+                    else:
+                        ok = cc_.ok(f"/v1/agg/submit?{_qs(op='xor', k=1024, words=64)}",
+                                    arows.astype("<u4").tobytes()) == want_agg
+                    if not ok:
+                        errors.append(f"{kind}: wrong reply")
+                    done[kind] += 1
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{kind}: {e!r}")
+            finally:
+                cc_.close()
+
+        kinds = ["replay"] * 4 + ["gen"] * 2 + ["agg"] * 2
+        threads = [threading.Thread(target=background, args=(k_,)) for k_ in kinds]
+        for t in threads:
+            t.start()
+        time.sleep(S["pause_s"])
+        t0 = time.perf_counter()
+        got = c.ok(f"/v1/eval_points_batch?{_qs(log_n=n3, k=gk, q=q3, format='packed')}",
+                   b"".join(kgate.to_bytes()) + _u8(xg))
+        cap_s = time.perf_counter() - t0
+        time.sleep(S["pause_s"])
+        stop.set()
+        for t in threads:
+            t.join()
+        if errors:
+            raise AssertionError(f"capture gate: {errors[:3]}")
+        _same("capture under traffic", got, want_gate)
+        new = plans.capture_count()
+        if new != captured + (1 if on_card else 0):
+            raise AssertionError(f"capture gate: capture_count() {captured} -> {new}")
+        captured = new
+        step_log(f"[sidecar] capture gate: a {gk}-key request captured a new graph in "
+            f"{cap_s * 1e3:.1f} ms (served) while 8 threads ran {dict(done)} requests; no request "
+            f"failed, every reply exact; capture_count() {captured}")
+
+        # 6. The served path runs the kernels: one traced request a route.
+        if on_card:
+            traced = {}
+            a20, ka20, _ = keys2["compat"]
+            _, kf20, _ = keys2["fast"]
+            n2, k2 = S["n2"], S["k2"]
+            n5 = S["n5"]
+            reqs = {
+                "evalfull compat": (f"/v1/evalfull_batch?{_qs(log_n=n2, k=k2)}",
+                                    b"".join(ka20.to_bytes())),
+                "evalfull fast": (f"/v1/evalfull_batch?{_qs(log_n=n2, k=k2, profile='fast')}",
+                                  b"".join(kf20.to_bytes())),
+                "points compat": (f"/v1/eval_points_batch?{_qs(log_n=n3, k=gk, q=q3, format='packed')}",
+                                  b"".join(kgate.to_bytes()) + _u8(xg)),
+                "points fast": (path_rep, body_rep),
+                "dcf_points": (f"/v1/dcf_eval_points?{qs5}", g5[: k5 * kl5] + _u8(xs5)),
+                "dcf_interval": (f"/v1/dcf_interval_eval?{qsi}", gi[:len(gi) // 2] + _u8(xsi)),
+                "gen compat": (f"/v1/gen?{_qs(log_n=n2, alpha=7)}", b""),
+                "gen fast": (f"/v1/gen?{_qs(log_n=n2, alpha=7, profile='fast')}", b""),
+                "dcf_gen": (f"/v1/dcf_gen?{_qs(log_n=n5, k=k5)}", _u8(al5)),
+                "eval compat": (f"/v1/eval?{_qs(log_n=n2, x=int(a20[0]))}", ka20.to_bytes()[0]),
+                "eval fast": (f"/v1/eval?{_qs(log_n=n2, x=7, profile='fast')}",
+                              kf20.to_bytes()[0]),
+            }
+            for prof in ("compat", "fast"):
+                kl = profiles[prof][2](hn)
+                a = np.frombuffer(hh_blobs[prof], np.uint8).reshape(G, hn, kl)
+                reqs[f"hh_eval {prof}"] = (
+                    f"/v1/hh/eval?{_qs(log_n=hn, k=G, q=16, level=3, profile=prof, format='packed')}",
+                    np.ascontiguousarray(a[:, 3]).tobytes()
+                    + _u8(np.arange(16, dtype=np.uint64) << np.uint64(hn - 4)))
+                # The session is opened untraced (its frontier's operands go to
+                # the card then); the traced round extends it 4 levels deeper.
+                last = np.ascontiguousarray(a[:, hn - 1]).tobytes()
+                sess = f"session=trace-{prof}&format=packed"
+                c.ok(f"/v1/hh/eval?{_qs(log_n=hn, k=G, q=16, level=3, profile=prof)}&{sess}",
+                     last + _u8(np.arange(16, dtype=np.uint64) << np.uint64(hn - 4)))
+                reqs[f"hh_session {prof}"] = (
+                    f"/v1/hh/eval?{_qs(log_n=hn, k=G, q=16, level=7, profile=prof)}&{sess}",
+                    last + _u8(np.arange(16, dtype=np.uint64) << np.uint64(hn - 8)))
+                qp, _ = deal(prof, np.arange(pk, dtype=np.uint64) % np.uint64(nr),
+                             pir_store.registry().get(f"c4-{prof}").log_n)
+                reqs[f"pir {prof}"] = (f"/v1/pir/query?{_qs(db='c4-' + prof, k=pk)}",
+                                       b"".join(qp.to_bytes()))
+            for route, (path, body) in reqs.items():
+                want = SIDECAR_ROUTE_KERNELS[route]
+                # A late trace loses the first device events of its session:
+                # sleep kernels lead each traced request (as in phase 40).
+                _, _, busy = device_breakdown(lambda: (_sleep_lead(), c.ok(path, body)),
+                                              want[0])
+                counts = _kernel_counts(busy)
+                got = _hand_kernels(counts, {k_: 1 for k_ in want})
+                if not all(got.values()):
+                    raise AssertionError(f"traced {route}: kernels {dict(counts)}")
+                traced[route] = got
+            step_log(f"[sidecar] one traced served request a route shows its kernels: {traced}")
+
+        # 7. The breaker: a transient dispatch fault trips it; the probe replays.
+        st = handlers.serving_state()
+        br = st.breaker
+        for prof in ("compat", "fast"):  # the recent plans: graph plans
+            c.ok(f"/v1/eval_points_batch?{_qs(log_n=n3, k=S['k3'], q=q3, profile=prof, format='packed')}",
+                 body3[prof][0])
+        c.ok(path_rep, body_rep)
+        n_fail = br.threshold * (br.retries + 1)
+        os.environ["DPF_CUDA_FAULTS"] = f"dispatch.points:unavailable:times={n_fail}"
+        try:
+            faults.install_from_env()
+        finally:
+            del os.environ["DPF_CUDA_FAULTS"]
+        replays0 = plans.cache().stats()["replays"]
+        statuses = []
+        for _ in range(br.threshold):
+            s_, body_, hdr = c.post(path_rep, body_rep)
+            statuses.append((s_, json.loads(body_)["code"]))
+        s_, body_, hdr = c.post(path_rep, body_rep)
+        statuses.append((s_, json.loads(body_)["code"]))
+        ready = c.get("/readyz")
+        trips = br.stats()
+        if (statuses != [(503, "unavailable")] * (br.threshold + 1) or trips["trips"] != 1
+                or trips["retries"] != br.threshold * br.retries
+                or ready[0] != 503 or json.loads(ready[1])["code"] != "breaker_open"
+                or "Retry-After" not in hdr):
+            raise AssertionError(f"breaker: {statuses} {trips} {ready}")
+        # Wait for the probe thread without reading the state: a read after
+        # the cooldown moves open -> half_open by time alone, and the probe
+        # then stands down without re-warming.
+        t0 = time.perf_counter()
+        br._probe_thread.join(timeout=60)
+        probe_s = time.perf_counter() - t0
+        if br._probe_thread.is_alive() or br.stats()["probe_runs"] != 1 or br.state != "half_open":
+            raise AssertionError(f"breaker: the probe did not move it to half_open: {br.stats()}")
+        replays = plans.cache().stats()["replays"] - replays0
+        if on_card and replays <= 0:
+            raise AssertionError("breaker: the probe replayed no graph")
+        if plans.capture_count() != captured:
+            raise AssertionError("breaker: the probe captured")
+        _same("breaker trial", c.ok(path_rep, body_rep), want_rep)
+        stats = br.stats()
+        ready = c.get("/readyz")
+        if stats["state"] != "closed" or stats["recoveries"] != 1 or ready[0] != 200:
+            raise AssertionError(f"breaker recovery: {stats} {ready}")
+        faults.clear()
+        step_log(f"[sidecar] breaker: {br.threshold} requests x {br.retries + 1} attempts of a "
+            f"transient fault -> {statuses}, trips 1, /readyz 503 breaker_open; the probe "
+            f"({stats['probe_runs']} run) re-warmed through {replays} graph replays, half-open "
+            f"after {probe_s:.2f} s; the trial request exact, closed, recoveries 1")
+
+        # 8. Observability: metrics == stats, the contract's names, a trace.
+        tid = "phase41-trace"
+        c.ok(path_rep, body_rep, {"X-DPF-Trace": tid})
+        # The server records a trace after it has written the reply: poll.
+        t0 = time.perf_counter()
+        while True:
+            status, tr = c.get(f"/v1/trace?id={tid}")
+            if json.loads(tr)["traces"] or time.perf_counter() - t0 > 30:
+                break
+            time.sleep(0.02)
+        spans = set()
+
+        def walk(node):
+            spans.add(node["name"])
+            for ch in node.get("children", []):
+                walk(ch)
+
+        tr = json.loads(tr)
+        for t_ in tr["traces"]:
+            for sp in t_["spans"]:
+                walk(sp)
+        if status != 200 or not tr["traces"] or not set(SIDECAR_TRACE_SPANS) <= spans:
+            raise AssertionError(f"trace {tid}: spans {sorted(spans)}")
+        status, mtext = c.get("/v1/metrics")
+        status2, stext = c.get("/v1/stats")
+        scrape = promtext.parse(mtext.decode(), strict=True)
+        stats = json.loads(stext)
+        contract = json.loads((Path(__file__).resolve().parent / "docs" / "CONTRACT.json")
+                              .read_text())["metrics"]
+        missing = sorted(n_ for n_ in contract if n_ not in scrape.types
+                         and (on_card or n_ != "dpf_device_memory_bytes"))
+        b_ = stats["batcher"]
+        pairs = {
+            ("dpf_requests_total", None): b_["requests"],
+            ("dpf_dispatches_total", None): b_["dispatches"],
+            ("dpf_keys_dispatched_total", None): b_["keys_dispatched"],
+            ("dpf_shed_total", (("kind", "depth"),)): b_["shed_depth"],
+            ("dpf_expired_total", (("where", "queue"),)): b_["expired_queue"],
+            ("dpf_breaker_transitions_total", (("kind", "trip"),)): stats["breaker"]["trips"],
+            ("dpf_breaker_transitions_total", (("kind", "recovery"),)):
+                stats["breaker"]["recoveries"],
+            ("dpf_breaker_retries_total", None): stats["breaker"]["retries"],
+            ("dpf_plan_hits_total", None): stats["plans"]["hits"],
+            ("dpf_plan_compiles_total", None): stats["plans"]["misses"],
+            ("dpf_keycache_hits_total", None): stats["key_cache"]["hits"],
+            ("dpf_pir_queries_total", None): stats["pir"]["queries"],
+            ("dpf_hh_session_hits_total", None): stats["hh_state"]["hits"],
+        }
+        bad = {f"{n_}{dict(lb or ())}": (scrape.value(n_, dict(lb or ())), v)
+               for (n_, lb), v in pairs.items() if scrape.value(n_, dict(lb or ())) != v}
+        if status != 200 or status2 != 200 or missing or bad:
+            raise AssertionError(f"metrics: missing {missing}, != stats {bad}")
+        step_log(f"[sidecar] /v1/metrics parses strictly, names all {len(contract)} metrics of the "
+            f"contract, and its counters equal /v1/stats; /v1/trace?id= spans {sorted(spans)}")
+
+        # 9. Timings.
+        n2, k2 = S["n2"], S["k2"]
+        _, ka20, _ = keys2["compat"]
+        al3 = rng.integers(1, 1 << n3, size=S["k3"], dtype=np.uint64)
+        p3, _ = deal("compat", al3, n3)
+        x3 = rng.integers(0, 1 << n3, size=(S["k3"], q3), dtype=np.uint64)
+        path3 = f"/v1/eval_points_batch?{_qs(log_n=n3, k=S['k3'], q=q3, format='packed')}"
+        body3c = b"".join(p3.to_bytes()) + _u8(x3)
+
+        def synced(fn):
+            def run():
+                fn()
+                if on_card:
+                    torch.cuda.synchronize()
+            return run
+
+        cases = [
+            ("config 2 evalfull_batch (blocking)", f"/v1/evalfull_batch?{_qs(log_n=n2, k=k2)}",
+             b"".join(ka20.to_bytes()), True,
+             synced(lambda: plans.run_evalfull("compat", ka20, device=dev))),
+            ("config 2 evalfull one key (blocking)", f"/v1/evalfull?{_qs(log_n=n2, stream=0)}",
+             ka20.to_bytes()[0], False, None),
+            ("config 2 evalfull one key (stream)", f"/v1/evalfull?{_qs(log_n=n2, stream=1)}",
+             ka20.to_bytes()[0], False, None),
+            ("config 3 points compat", path3, body3c, False,
+             synced(lambda: plans.run_points("points", "compat", p3, x3, device=dev))),
+            ("config 5 dcf_points", f"/v1/dcf_eval_points?{qs5}", g5[: k5 * kl5] + _u8(xs5),
+             False, synced(lambda: plans.run_points("dcf_points", "fast", da, xs5, device=dev))),
+        ]
+        def phases():
+            return json.loads(c.get("/v1/stats")[1])["phases"]
+
+        for label, path, body, big, direct in cases:
+            ph0 = phases()
+            lat1 = _closed_loop(port, 1, S["lat_n1_big"] if big else S["lat_n1"], S["lat_cap_s"],
+                                path, body)
+            split = _phase_split(ph0, phases(), len(lat1), statistics.fmean(lat1))
+            before = st.batcher.stats_dict()
+            lat16 = _closed_loop(port, S["lat_clients"],
+                                 S["lat_n16_big"] if big else S["lat_n16"], S["lat_cap_s"],
+                                 path, body)
+            after = st.batcher.stats_dict()
+            nd = after["dispatches"] - before["dispatches"]
+            row = (f"[sidecar time] {card}: {label}: 1 client p50 {_pct(lat1, 50):.3f} ms "
+                   f"{_tail(lat1)} mean {statistics.fmean(lat1):.3f} ms (n={len(lat1)}); "
+                   f"{S['lat_clients']} clients p50 {_pct(lat16, 50):.3f} ms {_tail(lat16)} "
+                   f"(n={len(lat16)})")
+            if nd:
+                row += (f", {(after['keys_dispatched'] - before['keys_dispatched']) / nd:.1f} "
+                        f"keys a dispatch")
+            row += f"; 1 client, mean ms a request: {split}"
+            if direct is not None:
+                d_ms = host_ms(direct, warmup=1, reps=S["direct_reps"])
+                row += (f"; direct plans call {d_ms:.3f} ms (median of {S['direct_reps']}), the "
+                        f"sidecar adds {_pct(lat1, 50) - d_ms:.3f} ms at p50")
+            step_log(row)
+        if plans.capture_count() != captured:
+            raise AssertionError(f"timings: capture_count() moved: {captured} -> "
+                                 f"{plans.capture_count()}")
+        if on_card:
+            wall_ms, span_ms, busy = device_breakdown(
+                lambda: _closed_loop(port, 16, 32, S["lat_cap_s"], path3, body3c),
+                "walk_bm_kernel")
+            total = sum(us for us, _ in busy.values()) / 1e3
+            step_log(f"[sidecar time] {card}: config 3 burst of 16 clients x 2 requests traced: wall "
+                f"{wall_ms:.3f} ms, device busy {total:.3f} ms, idle {100 - 100 * total / wall_ms:.1f} "
+                f"% of the wall")
+    finally:
+        c.close()
+        srv.shutdown()
+        srv.server_close()
+        faults.clear()
+        handlers.reset_serving_state()
+        for k_, v in saved.items():
+            if v is None:
+                os.environ.pop(k_, None)
+            else:
+                os.environ[k_] = v
+    log(f"[sidecar] phase 41 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose fast expansion kernels phase 15 "
                     "times in turns with this tree's")
     ap.add_argument("--seed", type=int, default=4, help="seed of phase 36's PIR database "
-                    "and queries")
+                    "and queries (and of phase 41's)")
     args = ap.parse_args()
     parent = args.parent
     if not torch.cuda.is_available():
@@ -2799,6 +3681,8 @@ def main() -> int:
     t0 = time.perf_counter()
     plans_phase(dev, card)
     log(f"[plans] phase 40 in {time.perf_counter() - t0:.1f} s")
+    # The sidecar on the card, over the plans.
+    sidecar_phase(dev, card, args.seed)
     rows_out += point_checked(dev, card, n_sm * clock_hz, point_head)
     rows_out += gate_checked(dev, card, n_sm * clock_hz, gate_head)
     # The option kernels' plain versions run last: traces after many small

@@ -129,6 +129,7 @@ def gen_shares(
     log_n: int,
     profile: str = "compat",
     rng: np.random.Generator | None = None,
+    gen=None,
     *,
     device=None,
 ) -> tuple[HHShare, HHShare]:
@@ -136,7 +137,17 @@ def gen_shares(
     client values: ONE batched ``gen_batch`` over all ``log_n * G`` level
     DPFs (the per-client point of level ``i`` is the client's ``(i+1)``-bit
     prefix, low bits zeroed), its tower on ``device`` (None: the card;
-    ``"cpu"``: the host tower)."""
+    ``"cpu"``: the host tower).  ``gen(points, log_n, rng=None)`` overrides
+    the profile's gen_batch, as in the reference: the sidecar injects its
+    coalescing gen lane (which carries its own device) so /v1/hh/gen rides
+    the same dealer dispatch as /v1/gen."""
+    if gen is None:
+        gen_batch, _, _ = _profile_api(profile)
+        dev = resolve_device(device)
+
+        def gen(points, n, rng=None):
+            return gen_batch(points, n, rng=rng, device=dev)
+
     values = np.asarray(values, dtype=np.uint64)
     if values.ndim != 1 or values.shape[0] == 0:
         raise ValueError("heavy_hitters: values must be a non-empty vector")
@@ -144,12 +155,10 @@ def gen_shares(
         raise ValueError("heavy_hitters: log_n out of range")
     if (values >> np.uint64(log_n)).any():
         raise ValueError("heavy_hitters: value out of domain")
-    gen_batch, _, _ = _profile_api(profile)
-    dev = resolve_device(device)
     n = log_n
     shifts = (n - 1 - np.arange(n, dtype=np.uint64))[:, None]  # [n, 1]
     points = ((values[None, :] >> shifts) << shifts).reshape(n * values.shape[0])
-    ka, kb = gen_batch(points, n, rng=rng, device=dev)
+    ka, kb = gen(points, n, rng=rng)
     return HHShare(n, ka, profile), HHShare(n, kb, profile)
 
 

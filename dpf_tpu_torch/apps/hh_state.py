@@ -1,8 +1,8 @@
 """Frontier state on the card for the incremental heavy-hitter descent.
 
-The port's counterpart of ``dpf_tpu/apps/hh_state.py``: its descent engine
-and :func:`warm_ladder` (the serving session registry, ``SessionCache`` and
-``serve_extend``, come with the port's sidecar).
+The port's counterpart of ``dpf_tpu/apps/hh_state.py``: its descent engine,
+:func:`warm_ladder`, and the sidecar's session registry
+(:class:`SessionCache`) with its round primitive (:func:`serve_extend`).
 
 The stateless driver (apps/heavy_hitters.py) re-walks every candidate from
 the ROOT each round: a level-``l`` evaluation of G clients x Q candidates
@@ -42,16 +42,22 @@ the reference's.
 
 from __future__ import annotations
 
+import threading
+import time
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from ..core import bitpack, plans
+from ..core import bitpack, knobs, plans
 from ..core.device import resolve_device
 
 __all__ = [
     "StaleState",
     "PRG_EVALS",
     "FrontierState",
+    "SessionCache",
+    "serve_extend",
     "stateless_round_evals",
     "warm_ladder",
 ]
@@ -157,6 +163,11 @@ class FrontierState:
         else:
             self.seed_state = (dk.seed_planes.repeat(1, self.cb, 1),
                                dk.t_words.repeat(self.cb, 1))
+
+    @property
+    def nbytes(self) -> int:
+        """Card bytes held by the resident frontier (32-bit lanes)."""
+        return sum(int(a.numel()) * 4 for a in self.seed_state)
 
     # -- round API ---------------------------------------------------
 
@@ -282,6 +293,150 @@ class FrontierState:
             raise StaleState("requested candidates not in emitted columns")
         bits = bitpack.unpack_bits(rows[: self.g], self.emitted.size)
         return bitpack.pack_bits(bits[:, pos])
+
+
+# ---------------------------------------------------------------------------
+# Serving-side session registry
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Session:
+    sid: str
+    digest: str
+    profile: str
+    log_n: int
+    state: FrontierState
+    created: float
+    last_used: float
+    rounds: int = 0
+
+
+class SessionCache:
+    """Descent-session registry for the sidecar: session id -> resident
+    :class:`FrontierState`, bounded by the ``DPF_CUDA_HH_STATE_*`` knobs
+    (LRU count, card-byte budget, idle TTL; re-read per call).  All mutation
+    happens under the provided lock: the sidecar passes its stats lock, so
+    ``/v1/stats`` snapshots and evictions serialize with request
+    bookkeeping.  The reference's registry, over the port's frontier."""
+
+    def __init__(self, lock: threading.RLock | None = None):
+        self._lock = lock if lock is not None else threading.RLock()
+        self._sessions: dict[str, _Session] = {}  # insertion == LRU order
+        self.hits = 0
+        self.misses = 0
+        self.rebuilds = 0
+        self.evicted = 0
+
+    def _evict_locked(self, sid: str) -> None:
+        if self._sessions.pop(sid, None) is not None:
+            self.evicted += 1
+
+    def evict(self, sid: str) -> None:
+        with self._lock:
+            self._evict_locked(sid)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.evicted += len(self._sessions)
+            self._sessions.clear()
+
+    def nbytes(self) -> int:
+        with self._lock:
+            return sum(s.state.nbytes for s in self._sessions.values())
+
+    def sweep(self, now: float | None = None) -> None:
+        """Enforce the TTL, session-count and byte budgets (oldest-idle
+        first; the budget never evicts the last remaining session, so a
+        single over-budget descent still completes incrementally)."""
+        now = time.time() if now is None else now
+        ttl = knobs.get_int("DPF_CUDA_HH_STATE_TTL_S")
+        max_n = knobs.get_int("DPF_CUDA_HH_STATE_MAX_SESSIONS")
+        max_b = knobs.get_int("DPF_CUDA_HH_STATE_MAX_BYTES")
+        with self._lock:
+            for sid, s in list(self._sessions.items()):
+                if now - s.last_used > ttl:
+                    self._evict_locked(sid)
+            by_idle = sorted(self._sessions, key=lambda k: self._sessions[k].last_used)
+            while len(self._sessions) > max(max_n, 1):
+                self._evict_locked(by_idle.pop(0))
+            while (len(self._sessions) > 1
+                   and sum(s.state.nbytes for s in self._sessions.values()) > max_b):
+                self._evict_locked(by_idle.pop(0))
+
+    def lookup(self, sid: str, digest: str, profile: str, log_n: int):
+        """The live session for ``sid``, evicted (and None returned) if the
+        caller's key material or shape no longer matches (a reused session
+        id with fresh keys is a new descent)."""
+        with self._lock:
+            s = self._sessions.get(sid)
+            if s is None:
+                self.misses += 1
+                return None
+            if s.digest != digest or s.profile != profile or s.log_n != int(log_n):
+                self._evict_locked(sid)
+                self.misses += 1
+                return None
+            self.hits += 1
+            s.last_used = time.time()
+            return s
+
+    def store(self, sid: str, digest: str, state: FrontierState) -> _Session:
+        now = time.time()
+        s = _Session(sid=sid, digest=digest, profile=state.profile, log_n=state.log_n,
+                     state=state, created=now, last_used=now)
+        with self._lock:
+            self._sessions[sid] = s
+        self.sweep(now)
+        return s
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "sessions": len(self._sessions),
+                "bytes": sum(s.state.nbytes for s in self._sessions.values()),
+                "hits": self.hits,
+                "misses": self.misses,
+                "rebuilds": self.rebuilds,
+                "evicted": self.evicted,
+            }
+
+
+def serve_extend(
+    cache: SessionCache, sid: str, profile: str, kb, digest: str,
+    values: np.ndarray, level: int, *, device=None,
+) -> np.ndarray:
+    """Sidecar round primitive behind ``/v1/hh/eval?session=<sid>``: ``kb``
+    is the G-key level-``(n-1)`` batch of the request body (the session
+    contract), ``values`` the raw shifted candidate values, ``device`` the
+    sidecar's (None: the card).  The reply equals a from-root evaluation of
+    those keys at ``level`` bit for bit, whether the cached frontier
+    served, was rebuilt, or was just created.  The whole round holds the
+    device gate (``plans.device_work``): the frontier's operands go to the
+    card outside the plans."""
+    depth = int(level) + 1
+    prefixes = np.asarray(values, np.uint64) >> np.uint64(kb.log_n - depth)
+    with plans.device_work():
+        sess = cache.lookup(sid, digest, profile, kb.log_n)
+        if sess is None:
+            sess = cache.store(sid, digest, FrontierState(profile, kb, device=device))
+        try:
+            try:
+                rows = sess.state.advance(prefixes, depth)
+            except StaleState:
+                with cache._lock:
+                    cache.rebuilds += 1
+                sess.state.reset()
+                rows = sess.state.advance(prefixes, depth)
+        except Exception:
+            # The dispatch itself failed: the frontier may be poisoned.  Evict
+            # so the next round rebuilds from the root, and let the breaker
+            # see the failure.
+            cache.evict(sid)
+            raise
+    with cache._lock:
+        sess.rounds += 1
+    return rows
 
 
 def warm_ladder(profile: str, log_n: int, k: int, q: int, *, device=None) -> None:

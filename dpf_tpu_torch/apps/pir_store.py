@@ -146,7 +146,7 @@ class PirRegistry:
         with self._lock:
             entry = self._dbs.get(name)
         if entry is None:
-            raise KeyError(f"pir: unknown db {name!r} (load it first)")
+            raise KeyError(f"pir: unknown db {name!r} (load it first: POST /v1/pir/db)")
         return entry
 
     def names(self) -> list[str]:

@@ -207,6 +207,14 @@ def _parse(key: bytes, log_n: int):
     return seed, t, scw, tcw, fcw
 
 
+def check_point(key: bytes, x: int, log_n: int) -> None:
+    """The checks :func:`eval_point` makes of its arguments, in its order,
+    with its messages, and nothing else."""
+    if x >> log_n:
+        raise ValueError("dpf-fast: x out of domain")
+    _parse(key, log_n)
+
+
 def eval_point(key: bytes, x: int, log_n: int) -> int:
     """Single-point evaluation -> bit (reference Eval, dpf/dpf.go:171-211)."""
     if x >> log_n:

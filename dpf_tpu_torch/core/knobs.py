@@ -3,10 +3,10 @@
 The port's counterpart of ``dpf_tpu/core/knobs.py``, for the knobs that
 steer the port's own routes.  Every knob is **declared** once (name, kind,
 default, doc line, owning module), and every read goes through the typed
-accessors below (:func:`get_str`, :func:`get_int`, :func:`get_bool`,
-:func:`get_enum`, :func:`get_raw`, :func:`is_set`): reading an undeclared
-name raises ``KeyError`` at the call site, so a typo fails loudly instead of
-quietly returning a default.  :func:`audit_environ` lists ``DPF_CUDA_*``
+accessors below (:func:`get_str`, :func:`get_int`, :func:`get_float`,
+:func:`get_bool`, :func:`get_enum`, :func:`get_raw`, :func:`is_set`):
+reading an undeclared name raises ``KeyError`` at the call site, so a typo
+fails loudly instead of quietly returning a default.  :func:`audit_environ` lists ``DPF_CUDA_*``
 variables present in the environment but not declared here.
 
 Value semantics (every accessor but :func:`get_raw` and :func:`is_set`): an
@@ -41,7 +41,7 @@ class Knob:
     """One declared env knob."""
 
     name: str  # full env var name (DPF_CUDA_*)
-    kind: str  # "enum" | "int" | "bool" | "str"
+    kind: str  # "enum" | "int" | "float" | "bool" | "str" | "flag"
     default: str  # raw string form; what an unset/empty var means
     doc: str
     module: str  # owning module (repo-relative path)
@@ -109,6 +109,153 @@ _declare(
 )
 
 
+# The sidecar (server.py, serving/, obs/): the counterparts of the JAX
+# package's serving knobs, each with the same default.  The wire2 knobs
+# come with the port's wire2 front.
+_SRV = "dpf_tpu_torch/server.py"
+_declare(
+    "DPF_CUDA_BATCH", "bool", "on",
+    "Sidecar micro-batcher for the pointwise, DCF, heavy-hitter, gen and PIR "
+    "routes (off = direct per-request dispatch).", _SRV,
+)
+_declare(
+    "DPF_CUDA_BATCH_WINDOW_US", "float", "200",
+    "Burst-collection window per batcher lane, in microseconds (0 = collect "
+    "only what already queued).", "dpf_tpu_torch/serving/batcher.py",
+)
+_declare(
+    "DPF_CUDA_BATCH_MAX_KEYS", "int", "1024",
+    "Maximum key-rows coalesced into one batcher dispatch.",
+    "dpf_tpu_torch/serving/batcher.py",
+)
+_declare(
+    "DPF_CUDA_BATCH_TIMEOUT_S", "float", "600",
+    "Hard wall-clock bound a request waits on its batcher lane before failing "
+    "(the backstop behind the deadlines).", "dpf_tpu_torch/serving/batcher.py",
+)
+_declare(
+    "DPF_CUDA_QUEUE_MAX_DEPTH", "int", "256",
+    "Requests queued per batcher lane beyond which new arrivals are shed "
+    "(429 + Retry-After).", "dpf_tpu_torch/serving/batcher.py",
+)
+_declare(
+    "DPF_CUDA_QUEUE_MAX_AGE_MS", "float", "2000",
+    "Age of the oldest queued request of a lane beyond which new arrivals are "
+    "shed (429).", "dpf_tpu_torch/serving/batcher.py",
+)
+_declare(
+    "DPF_CUDA_DEADLINE_MS", "float", "0",
+    "Default per-request deadline when the client sends no X-DPF-Deadline-Ms "
+    "header (0 = none).", _SRV,
+)
+_declare(
+    "DPF_CUDA_DISPATCH_RETRIES", "int", "2",
+    "Retries in place of a dispatch that failed with a transient signature "
+    "(core/transients.py) before the failure counts toward the breaker.",
+    "dpf_tpu_torch/serving/breaker.py",
+)
+_declare(
+    "DPF_CUDA_RETRY_BACKOFF_MS", "float", "50",
+    "Base backoff between transient-dispatch retries, milliseconds (doubles "
+    "per attempt, capped at 1000 ms).", "dpf_tpu_torch/serving/breaker.py",
+)
+_declare(
+    "DPF_CUDA_BREAKER_THRESHOLD", "int", "3",
+    "Consecutive transient dispatch failures (after retries) that trip the "
+    "circuit breaker open.", "dpf_tpu_torch/serving/breaker.py",
+)
+_declare(
+    "DPF_CUDA_BREAKER_COOLDOWN_MS", "float", "1000",
+    "Open-circuit cooldown before a half-open trial dispatch (also the "
+    "probe's re-warm period).", "dpf_tpu_torch/serving/breaker.py",
+)
+_declare(
+    "DPF_CUDA_BREAKER_PROBE", "bool", "on",
+    "Background probe while the breaker is open: re-drives the recent plans "
+    "(graph replays on the card) and moves the breaker to half-open on "
+    "success (off = time-based half-open only).",
+    "dpf_tpu_torch/serving/breaker.py",
+)
+_declare(
+    "DPF_CUDA_FAULTS", "str", "",
+    "Fault-injection spec (serving/faults.py): semicolon-separated "
+    "site:kind[:ms=V][:times=N][:after=N] clauses; refused outside pytest "
+    "unless DPF_CUDA_FAULTS_ALLOW is set.  Empty = no faults.",
+    "dpf_tpu_torch/serving/faults.py", values="<site:kind[:opts];...>",
+)
+_declare(
+    "DPF_CUDA_FAULTS_ALLOW", "flag", "",
+    "Explicit opt-in that lets DPF_CUDA_FAULTS activate outside a pytest "
+    "process.", "dpf_tpu_torch/serving/faults.py",
+)
+_declare(
+    "DPF_CUDA_HH_STATE", "enum", "auto",
+    "Incremental heavy-hitter descent for /v1/hh/eval?session=: cache each "
+    "session's frontier on the card (apps/hh_state.py); off = always from "
+    "the root.", "dpf_tpu_torch/apps/hh_state.py", choices=("off", "auto", "on"),
+)
+_declare(
+    "DPF_CUDA_HH_STATE_MAX_SESSIONS", "int", "64",
+    "Cap on cached descent sessions; the oldest-idle is evicted first.",
+    "dpf_tpu_torch/apps/hh_state.py",
+)
+_declare(
+    "DPF_CUDA_HH_STATE_MAX_BYTES", "int", str(1 << 28),
+    "Card-byte budget across cached descent frontiers (the last live session "
+    "is never evicted).", "dpf_tpu_torch/apps/hh_state.py",
+)
+_declare(
+    "DPF_CUDA_HH_STATE_TTL_S", "int", "600",
+    "Idle seconds before a cached descent session is evicted.",
+    "dpf_tpu_torch/apps/hh_state.py",
+)
+_declare(
+    "DPF_CUDA_KEY_CACHE_ENTRIES", "int", "32",
+    "Host-repack LRU capacity in whole key batches (0 disables).",
+    "dpf_tpu_torch/serving/keycache.py",
+)
+_declare(
+    "DPF_CUDA_METRICS_BUCKETS_MS", "str", "0.5,1,2,5,10,20,50,100,200,500,1000,2000,5000",
+    "Histogram bucket bounds (ms, comma-separated) of the per-phase latency "
+    "histograms on GET /v1/metrics.", "dpf_tpu_torch/obs/metrics.py",
+    values="<ms,ms,...>",
+)
+_declare(
+    "DPF_CUDA_PROFILE_ALLOW", "flag", "",
+    "Explicit opt-in for POST /v1/profile (torch.profiler capture); unset, "
+    "the route answers 403.", "dpf_tpu_torch/obs/profile.py",
+)
+_declare(
+    "DPF_CUDA_PROFILE_MAX_S", "float", "60",
+    "Upper bound on one profiler capture, seconds (each capture stops itself "
+    "at min(requested, this)).", "dpf_tpu_torch/obs/profile.py",
+)
+_declare(
+    "DPF_CUDA_STREAM", "str", "auto",
+    "Streamed /v1/evalfull default: on, off, or auto (stream replies of at "
+    "least DPF_CUDA_STREAM_MIN_BYTES).", _SRV, values="off|auto|on",
+)
+_declare(
+    "DPF_CUDA_STREAM_MIN_BYTES", "int", str(1 << 20),
+    "auto-streaming threshold of /v1/evalfull, in reply bytes.", _SRV,
+)
+_declare(
+    "DPF_CUDA_TRACE", "bool", "on",
+    "Per-request span tracing and flight recorder (GET /v1/trace); off makes "
+    "every instrumentation point an is-None check.", "dpf_tpu_torch/obs/trace.py",
+)
+_declare(
+    "DPF_CUDA_TRACE_RING", "int", "256",
+    "Flight-recorder capacity in finished request traces.",
+    "dpf_tpu_torch/obs/trace.py",
+)
+_declare(
+    "DPF_CUDA_WIRE_FORMAT", "enum", "bits",
+    "Default reply format of the pointwise routes when a request omits "
+    "format= (the request's param wins).", _SRV, choices=("bits", "packed"),
+)
+
+
 # ---------------------------------------------------------------------------
 # Typed accessors
 # ---------------------------------------------------------------------------
@@ -172,6 +319,10 @@ def get_str(name: str) -> str:
 
 def get_int(name: str) -> int:
     return int(get_str(name))
+
+
+def get_float(name: str) -> float:
+    return float(get_str(name))
 
 
 def get_bool(name: str) -> bool:

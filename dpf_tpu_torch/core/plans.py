@@ -32,23 +32,40 @@ of serving traffic down to a small closed set of **plans**:
     nothing (:func:`capture_count` does not move): the reference's
     zero-retrace contract (``trace_count``) carried onto the card.
 
-There is no fallback: a capture or replay that fails on the card raises,
-naming the plan key; the eager body never runs in its place.  The kernel
-wrappers' launch counters advance at the warm run and the capture, never at
-a replay; a plan counts its own ``replays``.  Each graph keeps a private
+There is no fallback: a capture or replay that fails on the card raises
+:class:`PlanError`, naming the plan key; the eager body never runs in its
+place.
+
+**The device gate.**  A capture must not share the card with other work of
+the process: a CUDA call from another thread (a replay, an eager route, an
+allocation) can invalidate it.  Under a threaded server every ``run_*``
+holds the process-wide gate: shared for replays and eager routes, alone
+(exclusive) for a plan's first use on the card, which captures.  Eager
+device work outside the plans (the streamed EvalFull, a PIR database's
+placement, the heavy-hitter frontier) holds :func:`device_work`, the
+shared side.  A thread that already holds the gate shared and must capture
+sets its hold aside while it waits, so the gate cannot deadlock on itself.
+Captures also run in ``thread_local`` error mode, so a stray call from
+another thread cannot fail one.
+
+The kernel wrappers' launch counters advance at the warm run and the
+capture, never at a replay; a plan counts its own ``replays``.  Each graph keeps a private
 memory pool (``pool_bytes``: the allocator segments the pool owns);
 ``cache().clear()`` drops the graphs and their pools.
 
 Every ``run_*`` takes a trailing ``device=None``: the card, raising without
 one unless the caller passes ``device="cpu"``.  Each returns what the
-reference's returns, sliced back to K (and Q).  Not yet here: the mesh
-branches (ROADMAP A.6), tuned plans and ``forced_tuned`` and the trace
-events (A.9), and buffer donation (no counterpart: a graph's pool is its
-own).  ``PlanKey.mesh`` is always 0 and ``PlanKey.tuned`` always ``""``.
+reference's returns, sliced back to K (and Q), and emits the reference's
+trace events into the active dispatch span (``obs/trace.py``:
+``plan_lookup``, ``compute``, ``d2h``).  Not yet here: the mesh branches
+(ROADMAP A.6), tuned plans and ``forced_tuned`` (A.9), and buffer donation
+(no counterpart: a graph's pool is its own).  ``PlanKey.mesh`` is always 0
+and ``PlanKey.tuned`` always ``""``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -57,6 +74,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
 from ..ops.aes_bitslice import from_carrier, to_carrier
 from . import bitpack, knobs
 from .device import resolve_device
@@ -96,6 +114,18 @@ PLAN_ROUTES = frozenset(
         "hh_extend", "hh_fold", "agg_xor", "agg_add", "pir", "gen",
     }
 )
+# The routes whose plan owns a captured CUDA graph on the card.
+GRAPH_ROUTES = frozenset({"points", "dcf_points", "evalfull"})
+
+
+class PlanError(RuntimeError):
+    """A plan's capture or replay failed on the card.  ``plan_key`` names
+    the plan (public shape metadata only), so a server can report which
+    plan failed without the underlying error's text."""
+
+    def __init__(self, msg: str, plan_key: str):
+        super().__init__(msg)
+        self.plan_key = plan_key
 
 
 class PlanKey(NamedTuple):
@@ -196,11 +226,14 @@ class PlanCache:
     def stats(self) -> dict:
         with self._lock:
             plans = [p.as_dict() for p in self._plans.values()]
+        graphs = sum(p["graph"] for p in plans)
         return {
             "plans": plans,
             "hits": sum(p["hits"] for p in plans),
             "misses": sum(p["misses"] for p in plans),
-            "graphs": sum(p["graph"] for p in plans),
+            "tuned_plans": 0,  # tuned plans come with ROADMAP A.9
+            "trace_cache_entries": graphs,  # the reference's name for capture_count()
+            "graphs": graphs,
             "replays": sum(p["replays"] for p in plans),
             "pool_bytes": sum(p["pool_bytes"] for p in plans),
         }
@@ -237,6 +270,109 @@ def _stamp(plan: Plan, first: bool, t0: float) -> None:
     plan.last_used = time.time()
 
 
+def _lookup(key: PlanKey) -> tuple[Plan, bool]:
+    """The cache lookup of a ``run_*``, with its ``plan_lookup`` trace event."""
+    plan, first = _CACHE.get(key)
+    obs_trace.add_event("plan_lookup", hit=not first, route=key.route,
+                        k_bucket=key.k_bucket, q_bucket=key.q_bucket)
+    return plan, first
+
+
+# ---------------------------------------------------------------------------
+# The device gate
+# ---------------------------------------------------------------------------
+
+
+class DeviceGate:
+    """Process-wide shared/exclusive gate of the card (module docstring).
+
+    Shared holds nest on a thread; waiting exclusive holds go first, so a
+    capture is not starved by a stream of replays.  A thread that holds
+    the gate shared and asks for it exclusive releases its shared hold
+    while it waits and takes it back after."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+        self._waiting = 0
+        self._tls = threading.local()
+
+    def _depth(self) -> tuple[int, int]:
+        return getattr(self._tls, "shared", 0), getattr(self._tls, "excl", 0)
+
+    def _acquire_shared(self) -> None:
+        with self._cond:
+            while self._writer or self._waiting:
+                self._cond.wait()
+            self._readers += 1
+
+    def _release_shared(self) -> None:
+        with self._cond:
+            self._readers -= 1
+            if not self._readers:
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def shared(self):
+        n, x = self._depth()
+        if not (n or x):
+            self._acquire_shared()
+        self._tls.shared = n + 1
+        try:
+            yield
+        finally:
+            self._tls.shared = n
+            if not (n or x):
+                self._release_shared()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        n, x = self._depth()
+        if x:
+            self._tls.excl = x + 1
+            try:
+                yield
+            finally:
+                self._tls.excl = x
+            return
+        if n:
+            self._release_shared()  # set this thread's shared hold aside
+        with self._cond:
+            self._waiting += 1
+            while self._writer or self._readers:
+                self._cond.wait()
+            self._waiting -= 1
+            self._writer = True
+        self._tls.excl = 1
+        try:
+            yield
+        finally:
+            self._tls.excl = 0
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+            if n:
+                self._acquire_shared()
+
+
+_GATE = DeviceGate()
+
+
+def device_work():
+    """The shared side of the device gate, for device work outside the
+    plans (a context manager; nests)."""
+    return _GATE.shared()
+
+
+def _gate_for(plan: Plan, dev: torch.device):
+    """Exclusive for a graph plan's first use on the card (it captures),
+    shared otherwise."""
+    if dev.type == "cuda" and plan.graph is None and plan.key.route in GRAPH_ROUTES:
+        return _GATE.exclusive()
+    return _GATE.shared()
+
+
 # ---------------------------------------------------------------------------
 # Graph capture and replay
 # ---------------------------------------------------------------------------
@@ -259,13 +395,14 @@ def _capture(plan: Plan, body, operands: tuple, dev: torch.device) -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = body(*static)
             torch.cuda.synchronize()
             plan.capture_s = time.perf_counter() - t0
             plan.pool_bytes = _pool_bytes(graph)
     except Exception as e:
-        raise RuntimeError(f"plans: capturing {_key_str(plan.key)} failed: {e}") from e
+        ks = _key_str(plan.key)
+        raise PlanError(f"plans: capturing {ks} failed: {e}", ks) from e
     plan.graph, plan.static_in, plan.static_out = graph, static, out
 
 
@@ -293,7 +430,8 @@ def _graph_run(plan: Plan, dev: torch.device, body, operands: tuple) -> torch.Te
     try:
         plan.graph.replay()
     except Exception as e:
-        raise RuntimeError(f"plans: replaying {_key_str(plan.key)} failed: {e}") from e
+        ks = _key_str(plan.key)
+        raise PlanError(f"plans: replaying {ks} failed: {e}", ks) from e
     plan.replays += 1
     return plan.static_out
 
@@ -418,20 +556,25 @@ def run_points(route: str, profile: str, kb, xs: np.ndarray, device=None) -> np.
         raise ValueError(f"run_points: route {route!r} is not points|dcf_points")
     if route == "points" and profile not in ("compat", "fast"):
         raise ValueError(f"run_points: unknown profile {profile!r}")
-    xs = _checked_queries(route, kb, xs)
+    # The models' own tags, so a served error reads as the reference's.
+    tag = "dcf" if route == "dcf_points" else ("dpf-fast" if profile == "fast" else "dpf")
+    xs = _checked_queries(tag, kb, xs)
     K, Q = xs.shape
     dev = resolve_device(device)
     if not xs.size:  # no keys or no queries: nothing to dispatch
         return bitpack.empty_rows(K, Q, True)
     key = plan_key(route, profile, kb.log_n, K, Q, packed=True)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
     kbp = _pad_keys(kb, key.k_bucket - K)
-    body, operands = _points_body(route, profile, kbp,
-                                  _pad_queries(xs, key.k_bucket, key.q_bucket), dev)
-    with plan.lock:
-        out = _graph_run(plan, dev, body, operands)
-        words = from_carrier(out[:K, : bitpack.packed_words(Q)])
+    with _gate_for(plan, dev):
+        body, operands = _points_body(route, profile, kbp,
+                                      _pad_queries(xs, key.k_bucket, key.q_bucket), dev)
+        with plan.lock:
+            with obs_trace.child_span("compute"):
+                out = _graph_run(plan, dev, body, operands)
+            with obs_trace.child_span("d2h"):
+                words = from_carrier(out[:K, : bitpack.packed_words(Q)])
     _stamp(plan, first, t0)
     return bitpack.mask_tail(words, Q)
 
@@ -443,11 +586,11 @@ def run_interval(ik, xs: np.ndarray, device=None) -> np.ndarray:
     from ..models import dcf
 
     upper, lower, const = ik[0], ik[1], ik[2]
-    xs = _checked_queries("dcf_interval", upper, xs)
+    xs = _checked_queries("dcf", upper, xs)
     K, Q = xs.shape
     dev = resolve_device(device)
     key = plan_key("dcf_interval", "fast", upper.log_n, K, Q, packed=True)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
     pad = key.k_bucket - K
     if pad:
@@ -462,8 +605,10 @@ def run_interval(ik, xs: np.ndarray, device=None) -> np.ndarray:
             upper._plan_interval_padded = (lower, pad, (up, lp, cp_))
     else:
         up, lp, cp_ = upper, lower, const
-    words = dcf.eval_interval_points((up, lp, cp_), _pad_queries(xs, key.k_bucket, key.q_bucket),
-                                     packed=True, device=dev)
+    with _GATE.shared(), obs_trace.child_span("compute"):
+        words = dcf.eval_interval_points((up, lp, cp_),
+                                         _pad_queries(xs, key.k_bucket, key.q_bucket),
+                                         packed=True, device=dev)
     _stamp(plan, first, t0)
     return bitpack.mask_tail(np.ascontiguousarray(words[:K, : bitpack.packed_words(Q)]), Q)
 
@@ -481,17 +626,18 @@ def run_hh_level(profile: str, kb, xs: np.ndarray, level: int, device=None) -> n
         raise ValueError("hh: xs first axis must match key batch")
     dev = resolve_device(device)
     key = plan_key("hh_level", profile, kb.log_n, K, Q, packed=True)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
     kbp = _pad_keys(kb, key.k_bucket - K)
     if profile == "fast":
         from ..models.dpf_chacha import eval_points_level_grouped
     else:
         from ..models.dpf import eval_points_level_grouped
-    words = eval_points_level_grouped(
-        kbp, _pad_queries(xs, key.k_bucket, key.q_bucket), groups=1, packed=True,
-        levels=(int(level),), device=dev,
-    )
+    with _GATE.shared(), obs_trace.child_span("compute"):
+        words = eval_points_level_grouped(
+            kbp, _pad_queries(xs, key.k_bucket, key.q_bucket), groups=1, packed=True,
+            levels=(int(level),), device=dev,
+        )
     _stamp(plan, first, t0)
     return bitpack.mask_tail(np.ascontiguousarray(words[:K, : bitpack.packed_words(Q)]), Q)
 
@@ -522,7 +668,7 @@ def run_hh_extend(
     else:
         variant = f"fold{m}x{state[0].shape[1]}"
     key = plan_key("hh_extend", profile, log_n, k, q, packed=True, variant=variant)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
     if fast:
         from ..models import dpf_chacha as _m
@@ -532,16 +678,19 @@ def run_hh_extend(
         from ..models import dpf as _m
 
         bodies = (_m._hh_extend_body, _m._hh_leaf_first_body, _m._hh_leaf_fold_body)
-    if phase == "tree":
-        out = bodies[0](*state, *args)
-        new_state, rows_dev = tuple(out[:-1]), out[-1]
-    elif phase == "leaf_first":
-        out = bodies[1](ibits, *state, *args)
-        new_state, rows_dev = (out[0],), out[1]
-    else:
-        new_state, rows_dev = state, bodies[2](m, ibits, *state, *args)
-    # The new frontier stays on the card; only the packed rows cross.
-    rows = from_carrier(rows_dev)
+    with _GATE.shared():
+        with obs_trace.child_span("compute"):
+            if phase == "tree":
+                out = bodies[0](*state, *args)
+                new_state, rows_dev = tuple(out[:-1]), out[-1]
+            elif phase == "leaf_first":
+                out = bodies[1](ibits, *state, *args)
+                new_state, rows_dev = (out[0],), out[1]
+            else:
+                new_state, rows_dev = state, bodies[2](m, ibits, *state, *args)
+        # The new frontier stays on the card; only the packed rows cross.
+        with obs_trace.child_span("d2h"):
+            rows = from_carrier(rows_dev)
     _stamp(plan, first, t0)
     return new_state, rows
 
@@ -563,11 +712,12 @@ def run_hh_fold(rows_xor: np.ndarray, q: int | None = None, device=None) -> np.n
         raise ValueError("hh_fold: q exceeds packed row width")
     dev = resolve_device(device)
     key = plan_key("hh_fold", "public", 0, G, W * 32, packed=True)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
     rows_p = np.zeros((key.k_bucket, key.q_bucket // 32), np.uint32)
     rows_p[:G, :W] = rows_xor
-    counts = hh_fold.count_fold(rows_p, dev)
+    with _GATE.shared(), obs_trace.child_span("compute"):
+        counts = hh_fold.count_fold(rows_p, dev)
     _stamp(plan, first, t0)
     return np.ascontiguousarray(counts[:q])
 
@@ -591,22 +741,26 @@ def run_agg_fold(op: str, carry: np.ndarray | None, rows, device=None) -> np.nda
     R, W = rows.shape
     dev = resolve_device(device)
     key = plan_key(f"agg_{op}", "agg", 0, R, W * 32, packed=True)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
     rb, wb = key.k_bucket, key.q_bucket // 32
-    if on_card:
-        rows_t = torch.nn.functional.pad(rows, (0, wb - W, 0, rb - R))
-    else:
-        rows_p = np.zeros((rb, wb), np.uint32)
-        rows_p[:R, :W] = rows
-        rows_t = to_carrier(rows_p, dev)
     carry_p = np.zeros(wb, np.uint32)
     if carry is not None:
         carry = np.asarray(carry, dtype=np.uint32)
         if carry.shape != (W,):
             raise ValueError("agg: carry must be [W]")
         carry_p[:W] = carry
-    out = from_carrier(agg._fold_body(op, to_carrier(carry_p, rows_t.device), rows_t))
+    with _GATE.shared():
+        with obs_trace.child_span("compute"):
+            if on_card:
+                rows_t = torch.nn.functional.pad(rows, (0, wb - W, 0, rb - R))
+            else:
+                rows_p = np.zeros((rb, wb), np.uint32)
+                rows_p[:R, :W] = rows
+                rows_t = to_carrier(rows_p, dev)
+            out_t = agg._fold_body(op, to_carrier(carry_p, rows_t.device), rows_t)
+        with obs_trace.child_span("d2h"):
+            out = from_carrier(out_t)
     _stamp(plan, first, t0)
     return np.ascontiguousarray(out[:W])
 
@@ -624,10 +778,11 @@ def run_pir(db, kb, device=None) -> np.ndarray:
     shards = db.dispatch_shards()
     key = PlanKey("pir", db.profile, int(db.log_n), k_bucket(K), int(db.row_bytes) * 8,
                   True, knobs.get_str("DPF_CUDA_FUSE"), SBOX, shards, "")
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
-    srv = db.server(shards, device=dev)
-    rows = srv.answer(_pad_keys(kb, key.k_bucket - K))
+    with _GATE.shared(), obs_trace.child_span("compute"):
+        srv = db.server(shards, device=dev)
+        rows = srv.answer(_pad_keys(kb, key.k_bucket - K))
     _stamp(plan, first, t0)
     db.note_scan(K, srv.stream_chunks)
     return np.ascontiguousarray(rows[:K])
@@ -655,14 +810,15 @@ def run_gen(
     K = alphas.shape[0]
     dev = resolve_device(device)
     key = plan_key("gen", kind, log_n, K, 0, packed=True)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0_wall = time.perf_counter()
     kp = key.k_bucket if K else 0  # no keys: nothing to launch
-    if kind == "compat":
-        out = keys_gen.gen_device_compat(alphas, log_n, s0, t0, s1, t1, max(kp, 32) if K else 0,
-                                         device=dev)
-    else:
-        out = keys_gen.gen_device_cc(kind, alphas, log_n, s0, t0, s1, t1, kp, device=dev)
+    with _GATE.shared(), obs_trace.child_span("compute"):
+        if kind == "compat":
+            out = keys_gen.gen_device_compat(alphas, log_n, s0, t0, s1, t1,
+                                             max(kp, 32) if K else 0, device=dev)
+        else:
+            out = keys_gen.gen_device_cc(kind, alphas, log_n, s0, t0, s1, t1, kp, device=dev)
     _stamp(plan, first, t0_wall)
     return out
 
@@ -683,13 +839,22 @@ def run_evalfull(profile: str, kb, device=None) -> np.ndarray:
     dev = resolve_device(device)
     backend = mdpf._resolve_backend(None) if profile == "compat" else ""
     key = plan_key("evalfull", profile, kb.log_n, K, 0, packed=True, variant=backend)
-    plan, first = _CACHE.get(key)
+    plan, first = _lookup(key)
     t0 = time.perf_counter()
-    body, operands = _evalfull_body(profile, _pad_keys(kb, key.k_bucket - K), dev, backend)
-    with plan.lock:
-        words = from_carrier(_graph_run(plan, dev, body, operands)[:K])
+    kbp = _pad_keys(kb, key.k_bucket - K)
+    with _gate_for(plan, dev):
+        body, operands = _evalfull_body(profile, kbp, dev, backend)
+        # The copy-out finishes under the plan's lock: the static output is
+        # shared with the next replay.
+        with plan.lock:
+            with obs_trace.child_span("compute"):
+                out = _graph_run(plan, dev, body, operands)
+            with obs_trace.child_span("d2h"):
+                words = from_carrier(out[:K])
     _stamp(plan, first, t0)
-    return np.ascontiguousarray(words).view("<u1").reshape(K, -1)
+    # The row width comes from the words' shape, so K = 0 gives
+    # uint8[0, out_bytes] as the reference does (ROADMAP C.7).
+    return np.ascontiguousarray(words).view("<u1").reshape(K, words.shape[1] * words.shape[2] * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -733,67 +898,71 @@ def warmup(shapes: list[dict], device=None) -> list[dict]:
         q = int(spec.get("q", 32))
         t0 = time.perf_counter()
         kb_count = k_bucket(k)
-        alphas = np.zeros(kb_count, np.uint64)
-        if route == "pir":
-            from ..apps import pir_store
-
-            db = pir_store.registry().get(str(spec["db"]))
-            kb, _ = _gen_batch(db.profile)(alphas, db.log_n, rng=rng, device=dev)
-            run_pir(db, kb, device=dev)
-            out.append({"route": "pir", "profile": db.profile, "db": db.name,
-                        "log_n": db.log_n, "k_bucket": kb_count,
-                        "q_bucket": db.row_bytes * 8,
-                        "seconds": round(time.perf_counter() - t0, 3)})
-            continue
-        if route in ("agg_xor", "agg_add"):
-            run_agg_fold(route[4:], None,
-                         np.zeros((kb_count, max(q_bucket(q) // 32, 1)), np.uint32), device=dev)
-        elif route == "hh_level":
-            kb, _ = _gen_batch(profile)(alphas, log_n, rng=rng, device=dev)
-            run_hh_level(profile, kb, np.zeros((kb_count, q), np.uint64), 0, device=dev)
-        elif route == "hh_extend":
-            from ..apps import hh_state
-
-            hh_state.warm_ladder(profile, log_n, kb_count, q, device=dev)
-        elif route == "hh_fold":
-            run_hh_fold(np.zeros((kb_count, max(q_bucket(q) // 32, 1)), np.uint32), device=dev)
-        elif route == "evalfull":
-            kb, _ = _gen_batch(profile)(alphas, log_n, rng=rng, device=dev)
-            run_evalfull(profile, kb, device=dev)
-            if spec.get("stream"):
-                # The stream is not K-bucketed: warm it at the spec's K.
-                if profile == "fast":
-                    from ..models.dpf_chacha import eval_full_stream
-                else:
-                    from ..models.dpf import eval_full_stream
-                kb_s = kb if kb.k == k else _gen_batch(profile)(
-                    np.zeros(k, np.uint64), log_n, rng=rng, device=dev)[0]
-                for _ in eval_full_stream(kb_s, device=dev):
-                    pass
-        elif route == "gen":
-            from ..models import keys_gen
-
-            keys_gen.warm(profile, log_n, kb_count, rng, device=dev)
-        elif route == "dcf_interval":
-            from ..models import dcf
-
-            ia, _ = dcf.gen_interval_batch(alphas, alphas, log_n, rng=rng, device=dev)
-            run_interval(ia, np.zeros((kb_count, q), np.uint64), device=dev)
-        elif route == "dcf_points":
-            from ..models import dcf
-
-            da, _ = dcf.gen_lt_batch(alphas, log_n, rng=rng, device=dev)
-            run_points(route, "fast", da, np.zeros((kb_count, q), np.uint64), device=dev)
-        elif route == "points":
-            kb, _ = _gen_batch(profile)(alphas, log_n, rng=rng, device=dev)
-            run_points(route, profile, kb, np.zeros((kb_count, q), np.uint64), device=dev)
-        else:
-            raise ValueError(f"warmup: unknown route {route!r}")
-        out.append({"route": route, "profile": profile, "log_n": log_n,
-                    "k_bucket": kb_count,
-                    "q_bucket": q_bucket(q) if route not in ("evalfull", "gen") else 0,
-                    "seconds": round(time.perf_counter() - t0, 3)})
+        with device_work():
+            summary = _warm_one(spec, route, profile, log_n, k, q, kb_count, rng, dev)
+        summary["seconds"] = round(time.perf_counter() - t0, 3)
+        out.append(summary)
     return out
+
+
+def _warm_one(spec: dict, route: str, profile: str, log_n: int, k: int, q: int,
+              kb_count: int, rng, dev) -> dict:
+    """Drive one :func:`warmup` spec -> its summary (without the seconds)."""
+    alphas = np.zeros(kb_count, np.uint64)
+    if route == "pir":
+        from ..apps import pir_store
+
+        db = pir_store.registry().get(str(spec["db"]))
+        kb, _ = _gen_batch(db.profile)(alphas, db.log_n, rng=rng, device=dev)
+        run_pir(db, kb, device=dev)
+        return {"route": "pir", "profile": db.profile, "db": db.name, "log_n": db.log_n,
+                "k_bucket": kb_count, "q_bucket": db.row_bytes * 8}
+    if route in ("agg_xor", "agg_add"):
+        run_agg_fold(route[4:], None,
+                     np.zeros((kb_count, max(q_bucket(q) // 32, 1)), np.uint32), device=dev)
+    elif route == "hh_level":
+        kb, _ = _gen_batch(profile)(alphas, log_n, rng=rng, device=dev)
+        run_hh_level(profile, kb, np.zeros((kb_count, q), np.uint64), 0, device=dev)
+    elif route == "hh_extend":
+        from ..apps import hh_state
+
+        hh_state.warm_ladder(profile, log_n, kb_count, q, device=dev)
+    elif route == "hh_fold":
+        run_hh_fold(np.zeros((kb_count, max(q_bucket(q) // 32, 1)), np.uint32), device=dev)
+    elif route == "evalfull":
+        kb, _ = _gen_batch(profile)(alphas, log_n, rng=rng, device=dev)
+        run_evalfull(profile, kb, device=dev)
+        if spec.get("stream"):
+            # The stream is not K-bucketed: warm it at the spec's K.
+            if profile == "fast":
+                from ..models.dpf_chacha import eval_full_stream
+            else:
+                from ..models.dpf import eval_full_stream
+            kb_s = kb if kb.k == k else _gen_batch(profile)(
+                np.zeros(k, np.uint64), log_n, rng=rng, device=dev)[0]
+            for _ in eval_full_stream(kb_s, device=dev):
+                pass
+    elif route == "gen":
+        from ..models import keys_gen
+
+        keys_gen.warm(profile, log_n, kb_count, rng, device=dev)
+    elif route == "dcf_interval":
+        from ..models import dcf
+
+        ia, _ = dcf.gen_interval_batch(alphas, alphas, log_n, rng=rng, device=dev)
+        run_interval(ia, np.zeros((kb_count, q), np.uint64), device=dev)
+    elif route == "dcf_points":
+        from ..models import dcf
+
+        da, _ = dcf.gen_lt_batch(alphas, log_n, rng=rng, device=dev)
+        run_points(route, "fast", da, np.zeros((kb_count, q), np.uint64), device=dev)
+    elif route == "points":
+        kb, _ = _gen_batch(profile)(alphas, log_n, rng=rng, device=dev)
+        run_points(route, profile, kb, np.zeros((kb_count, q), np.uint64), device=dev)
+    else:
+        raise ValueError(f"warmup: unknown route {route!r}")
+    return {"route": route, "profile": profile, "log_n": log_n, "k_bucket": kb_count,
+            "q_bucket": q_bucket(q) if route not in ("evalfull", "gen") else 0}
 
 
 def recent_shapes(limit: int = 4) -> list[dict]:

@@ -160,6 +160,13 @@ def parse_key(k: DPFKey, log_n: int):
     return seed, t, scw, tcw, fcw
 
 
+def check_point(k: DPFKey, x: int, log_n: int) -> None:
+    """The checks :func:`eval_point` makes of its arguments, in its order,
+    with its messages, and nothing else."""
+    _check_params(x, log_n)
+    parse_key(k, log_n)
+
+
 def eval_point(k: DPFKey, x: int, log_n: int) -> int:
     """Evaluate one party's share at a single index ``x`` -> bit in {0, 1}.
 

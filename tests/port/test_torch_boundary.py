@@ -54,7 +54,14 @@ def test_import_loads_no_jax_and_no_dpf_tpu():
         "import dpf_tpu_torch.apps, dpf_tpu_torch.apps.heavy_hitters\n"
         "import dpf_tpu_torch.apps.hh_state, dpf_tpu_torch.apps.aggregation\n"
         "import dpf_tpu_torch.core.knobs, dpf_tpu_torch.core.plans\n"
-        "import dpf_tpu_torch.apps.pir_store\n"
+        "import dpf_tpu_torch.apps.pir_store, dpf_tpu_torch.core.transients\n"
+        "import dpf_tpu_torch.server, dpf_tpu_torch.serving, dpf_tpu_torch.serving.handlers\n"
+        "import dpf_tpu_torch.serving.batcher, dpf_tpu_torch.serving.breaker\n"
+        "import dpf_tpu_torch.serving.errors, dpf_tpu_torch.serving.faults\n"
+        "import dpf_tpu_torch.serving.headers, dpf_tpu_torch.serving.keycache\n"
+        "import dpf_tpu_torch.obs, dpf_tpu_torch.obs.metrics, dpf_tpu_torch.obs.profile\n"
+        "import dpf_tpu_torch.obs.promtext, dpf_tpu_torch.obs.trace\n"
+        "import dpf_tpu_torch.utils, dpf_tpu_torch.utils.profiling\n"
         "dpf_tpu_torch.fss\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dpf_tpu')]\n"
         "print(bad)\n"
@@ -601,3 +608,50 @@ def test_chacha_ops_without_cuda_raise_unless_cpu(monkeypatch, name):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()
     assert call(device="cpu") is not None
+
+
+SIDECAR_FILES = (
+    "dpf_tpu_torch/server.py", "dpf_tpu_torch/core/transients.py",
+    "dpf_tpu_torch/serving/__init__.py", "dpf_tpu_torch/serving/batcher.py",
+    "dpf_tpu_torch/serving/breaker.py", "dpf_tpu_torch/serving/errors.py",
+    "dpf_tpu_torch/serving/faults.py", "dpf_tpu_torch/serving/handlers.py",
+    "dpf_tpu_torch/serving/headers.py", "dpf_tpu_torch/serving/keycache.py",
+    "dpf_tpu_torch/obs/__init__.py", "dpf_tpu_torch/obs/metrics.py",
+    "dpf_tpu_torch/obs/profile.py", "dpf_tpu_torch/obs/promtext.py",
+    "dpf_tpu_torch/obs/trace.py", "dpf_tpu_torch/utils/__init__.py",
+    "dpf_tpu_torch/utils/profiling.py",
+)
+
+
+def test_port_source_scan_covers_the_sidecar():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert set(SIDECAR_FILES) <= names
+
+
+@pytest.mark.parametrize("path", SIDECAR_FILES)
+def test_sidecar_reads_only_declared_knobs(path):
+    """Every DPF_CUDA_* name a sidecar module spells is declared in the
+    port's registry (core/knobs.py), and none spells a DPF_TPU_* knob."""
+    from dpf_tpu_torch.core import knobs
+
+    text = (ROOT / path).read_text()
+    names = set(re.findall(r"DPF_CUDA_[A-Z0-9_]+", text))
+    assert names <= set(knobs.REGISTRY), sorted(names - set(knobs.REGISTRY))
+    assert not re.findall(r"DPF_TPU_[A-Z0-9_]+", text)
+
+
+def test_sidecar_serve_without_cuda_raises_unless_cpu(monkeypatch):
+    from dpf_tpu_torch import server
+    from dpf_tpu_torch.serving import handlers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        server.serve(port=0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        handlers._ServingState()
+    srv = server.serve(port=0, device="cpu")
+    try:
+        assert srv.device == torch.device("cpu")
+    finally:
+        srv.shutdown()
+        srv.server_close()

@@ -151,6 +151,17 @@ def test_run_evalfull_matches_direct_call_and_spec(profile, log_n, K):
     assert (rec.sum(1) == 1).all() and (rec[np.arange(K), alphas.astype(np.int64)] == 1).all()
 
 
+@pytest.mark.parametrize("profile", ["compat", "fast"])
+def test_run_evalfull_of_no_keys_is_empty_rows(profile):
+    """ROADMAP C.7: K 0 gives uint8[0, 2^(log_n-3)], 64 bytes at log_n 9, as
+    the reference's run_evalfull does (it pads to a one-key bucket and slices
+    back)."""
+    gen = port.gen_batch if profile == "compat" else fast.gen_batch
+    kb, _ = gen(np.zeros(0, np.uint64), 9, np.random.default_rng(0), device=CPU)
+    got = plans.run_evalfull(profile, kb, device=CPU)
+    assert got.shape == (0, 64) and got.dtype == np.uint8
+
+
 @pytest.mark.parametrize("log_n,K,Q", [(10, 3, 17), (12, 5, 33)])
 def test_run_interval_matches_direct_call(log_n, K, Q):
     rng = np.random.default_rng(log_n)
